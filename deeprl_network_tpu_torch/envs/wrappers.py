@@ -1,0 +1,45 @@
+"""Auto-reset wrapper (counterpart of ``deeprl_network_tpu/envs/wrappers.py``).
+
+The reference trainer resets an env mid-batch on done. For B batched
+instances that becomes a per-env ``torch.where`` between the stepped state
+and a fresh reset."""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from deeprl_network_tpu_torch.envs.base import Env
+
+
+def _where(pred: torch.Tensor, x: torch.Tensor, y: torch.Tensor):
+    """Per-env select: ``pred`` [B] broadcast over x's trailing axes."""
+    return torch.where(pred.reshape(pred.shape + (1,) * (x.ndim - 1)), x, y)
+
+
+def _tree_where(pred: torch.Tensor, a, b):
+    """Per-env select over the leaves of two batched state NamedTuples."""
+    return type(a)(*(_where(pred, x, y) for x, y in zip(a, b)))
+
+
+class AutoResetEnv:
+    """Wraps an :class:`Env`; on done, the returned state/obs are from a
+    fresh reset while reward/done describe the terminating transition."""
+
+    def __init__(self, env: Env):
+        self.env = env
+        self.spec = env.spec
+
+    def reset(self, batch: int, generator: torch.Generator = None):
+        return self.env.reset(batch, generator)
+
+    def step(self, state, action: torch.Tensor,
+             generator: torch.Generator = None
+             ) -> Tuple[object, torch.Tensor, torch.Tensor, torch.Tensor,
+                        Dict[str, torch.Tensor]]:
+        s2, obs2, reward, done, info = self.env.step(state, action)
+        rs, robs = self.env.reset(action.shape[0], generator)
+        env_new = _tree_where(done, rs, s2)
+        obs_new = _where(done, robs, obs2)
+        return env_new, obs_new, reward, done, info

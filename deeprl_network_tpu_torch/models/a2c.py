@@ -1,0 +1,92 @@
+"""A2C math: n-step returns, spatial reward discounting, joint loss
+(counterpart of ``deeprl_network_tpu/models/a2c.py``).
+
+- returns: R_t = r_t + gamma (1 - done_t) R_{t+1}, bootstrap R_T = V(s_T);
+  a reverse loop over the time axis;
+- reward normalization/clip, applied BEFORE spatial mixing;
+- spatial discounting: r_tilde = D @ r;
+- loss per agent: -sum_t log pi(a_t|s_t) Adv_t + 0.5 value_coef
+  sum_t (R_t - V_t)^2 - beta sum_t H(pi_t), summed over agents and
+  averaged over time and env batch.
+
+The replay loss ``a2c_loss`` (``fused_grad=False``) is not ported yet.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+
+def normalize_rewards(r: torch.Tensor, reward_norm: float,
+                      reward_clip: float) -> torch.Tensor:
+    if reward_norm and reward_norm > 0:
+        r = r / reward_norm
+    if reward_clip and reward_clip > 0:
+        r = torch.clamp(r, -reward_clip, reward_clip)
+    return r
+
+
+def spatial_mix(r: torch.Tensor, discount_matrix: torch.Tensor
+                ) -> torch.Tensor:
+    """r_tilde[..., i] = sum_j D[i, j] r[..., j]."""
+    return torch.einsum("ij,...j->...i", discount_matrix, r)
+
+
+def nstep_returns(rewards: torch.Tensor, dones: torch.Tensor,
+                  bootstrap: torch.Tensor, gamma: float) -> torch.Tensor:
+    """rewards [T, ..., N], dones [T, ...], bootstrap V [..., N] ->
+    returns [T, ..., N]."""
+    dones = dones.to(rewards.dtype)
+    R = bootstrap
+    out = [None] * rewards.shape[0]
+    for t in reversed(range(rewards.shape[0])):
+        R = rewards[t] + gamma * (1.0 - dones[t])[..., None] * R
+        out[t] = R
+    return torch.stack(out)
+
+
+class LossStats(NamedTuple):
+    total: torch.Tensor
+    policy: torch.Tensor
+    value: torch.Tensor
+    entropy: torch.Tensor
+
+
+def action_stats(logits: torch.Tensor, actions: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """log pi(a|s) of the taken action and nan-safe entropy.
+
+    logits [..., A] (padded actions at ~-1e9), actions [...] int ->
+    (logp_a [...], entropy [...]).
+    """
+    logp = torch.log_softmax(logits, dim=-1)
+    probs = torch.exp(logp)
+    logp_a = torch.gather(logp, -1, actions[..., None].long())[..., 0]
+    # entropy over valid actions only: padded logits ~ -1e9 => p ~ 0,
+    # p*logp -> 0 * -1e9, kept nan-safe by the where
+    ent_terms = torch.where(probs > 1e-8, probs * logp,
+                            torch.zeros_like(logp))
+    return logp_a, -torch.sum(ent_terms, dim=-1)
+
+
+def a2c_loss_terms(logp_a: torch.Tensor, entropy: torch.Tensor,
+                   values: torch.Tensor, returns: torch.Tensor,
+                   advs: torch.Tensor, entropy_coef: float,
+                   value_coef: float) -> Tuple[torch.Tensor, LossStats]:
+    """Joint A2C loss from per-step policy statistics.
+
+    All arrays [..., N]: mean over every leading axis (time, env batch),
+    sum over the trailing agent axis. advs/returns enter detached; values
+    carry the critic gradient.
+    """
+    lead = tuple(range(logp_a.ndim - 1))
+    policy_loss = -torch.sum(torch.mean(logp_a * advs.detach(), dim=lead))
+    value_loss = torch.sum(torch.mean(
+        0.5 * (returns.detach() - values) ** 2, dim=lead)) * value_coef
+    # RAW per-agent policy entropy (not coef * H)
+    mean_entropy = torch.mean(entropy)
+    entropy_loss = -torch.sum(torch.mean(entropy, dim=lead)) * entropy_coef
+    total = policy_loss + value_loss + entropy_loss
+    return total, LossStats(total, policy_loss, value_loss, mean_entropy)

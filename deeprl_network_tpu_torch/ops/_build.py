@@ -1,0 +1,94 @@
+"""Build the port's CUDA kernels with nvcc and load them with ctypes.
+
+Each source under ``csrc/`` compiles on first use into one shared library
+with a plain C interface:
+
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
+         -Xcompiler -fPIC -o build/lib<name>_<hash>.so csrc/<name>.cu
+
+The library name carries a hash of its source, so an edited source builds
+anew. ``build/`` lies beside this file and is listed in ``.gitignore``.
+``build()`` starts one nvcc per missing library, all together, and waits
+for all of them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from typing import Dict, Iterable, Optional
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+SOURCES = {"lstm_cell": os.path.join(_HERE, "csrc", "lstm_cell.cu")}
+BUILD_DIR = os.path.join(_HERE, "build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit on PATH or under /usr/local/cuda")
+
+
+def lib_path(name: str) -> str:
+    with open(SOURCES[name], "rb") as fh:
+        digest = hashlib.sha256(fh.read()).hexdigest()[:12]
+    return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+
+
+def build(names: Optional[Iterable[str]] = None,
+          verbose: bool = False) -> Dict[str, float]:
+    """Compile every missing library of ``names`` (default: all) in
+    parallel. Returns {name: seconds spent building} (0.0 when the library
+    was already built). With ``verbose``, nvcc prints each kernel's
+    registers, shared memory and spills (-Xptxas -v)."""
+    names = list(SOURCES if names is None else names)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = {}
+    t0 = time.perf_counter()
+    for name in names:
+        out = lib_path(name)
+        if os.path.exists(out):
+            continue
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+               "-o", tmp, SOURCES[name]]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    times = {name: 0.0 for name in names}
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        times[name] = time.perf_counter() - t0
+        if verbose and log:
+            print(f"[nvcc {name}]\n{log}", flush=True)
+        if proc.returncode != 0:
+            failed.append(f"{name} (exit {proc.returncode}):\n{log}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return times
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library ``name``, built first if needed."""
+    lib = _loaded.get(name)
+    if lib is None:
+        build([name])
+        lib = ctypes.CDLL(lib_path(name))
+        _loaded[name] = lib
+    return lib

@@ -1,0 +1,79 @@
+"""The port stands alone: no import of JAX or of the JAX package anywhere in
+``deeprl_network_tpu_torch/`` or ``chip_smoke.py``, importing it loads no
+JAX, and its entry points refuse to fall back to the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, "deeprl_network_tpu_torch")
+BANNED = ("jax", "jaxlib", "flax", "optax", "deeprl_network_tpu")
+
+
+def _port_files():
+    for d, _, files in os.walk(PORT):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(d, f)
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+def _banned(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in BANNED  # "deeprl_network_tpu_torch" is its own name
+
+
+def test_no_jax_imports_in_port_sources():
+    offenders = []
+    files = list(_port_files())
+    assert len(files) > 10
+    for path in files:
+        with open(path) as fh:
+            tree = ast.parse(fh.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                mods = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            offenders += [(os.path.relpath(path, ROOT), m) for m in mods
+                          if _banned(m)]
+    assert not offenders, offenders
+
+
+def test_importing_the_port_loads_no_jax():
+    code = (
+        "import sys\n"
+        "import deeprl_network_tpu_torch.utils.rollout\n"
+        "import deeprl_network_tpu_torch.utils.convert\n"
+        "import deeprl_network_tpu_torch.envs.grid\n"
+        "import deeprl_network_tpu_torch.config\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{BANNED!r}]\n"
+        "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
+def test_entry_points_raise_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device is valid")
+    from deeprl_network_tpu_torch.config import (
+        EnvConfig, ModelConfig, TrainConfig,
+    )
+    from deeprl_network_tpu_torch.envs.grid import LargeGridEnv
+    from deeprl_network_tpu_torch.utils.rollout import make_a2c
+    cfg = EnvConfig(scenario="large_grid", coop_gamma=0.9)
+    with pytest.raises(RuntimeError, match="cuda"):
+        LargeGridEnv(cfg)
+    env = LargeGridEnv(cfg, device="cpu")
+    with pytest.raises(RuntimeError, match="cuda"):
+        make_a2c(env, ModelConfig(), TrainConfig(), agent="ma2c_nc")
