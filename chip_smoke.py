@@ -10,8 +10,12 @@ Phases (any failure raises, exits non-zero and prints no result line):
   2. build: compile every CUDA kernel from ``deeprl_network_tpu_torch/ops/csrc``
      with nvcc (one process per source, all started together);
   3. kernels: hold each kernel against its plain PyTorch twin on the card at
-     the main path's shape (B=768, N=25, F=H=64) in f32 and bf16 and at a
-     ragged shape (B=12, N=3, F=H=16), forward and backward, and time both;
+     the main path's shape (B=768, N=25, F=H=64) in f32 and bf16, at ragged
+     shapes and at a width that takes the general kernel, forward and
+     backward; time them at the main path's shape from replays of a CUDA
+     graph of 20 launches (``ms``: inputs warm in L2; ``cold_ms``: L2
+     flushed before every launch; ``call_ms``: the host's time per call),
+     the earlier general kernel in bf16 beside the tensor-core one;
   4. reference: a small f32 train step on the card against the same step on
      the CPU (plain twins, held against the JAX package by the CPU tests);
   5. main path: the flagship MA2C_NC train step on the 5x5 grid at full
@@ -39,6 +43,10 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 FLAGSHIP = dict(B=768, N=25, F=64, H=64)
 RAGGED = dict(B=12, N=3, F=16, H=16)
+RAGGED_WIDE = dict(B=37, N=5, F=32, H=48)
+RAGGED_FULL = dict(B=100, N=25, F=64, H=64)
+ODD_WIDTH = dict(B=37, N=5, F=24, H=40)     # takes the general kernel
+FLUSH_BYTES = 128 * 2 ** 20                 # more than twice the 50 MB L2
 TOL = {("float32", "fwd"): 1e-5, ("float32", "bwd"): 1e-4,
        ("bfloat16", "fwd"): 0.05, ("bfloat16", "bwd"): 0.05}
 
@@ -55,22 +63,73 @@ def card_line() -> str:
     return out[0]
 
 
-def cuda_median_ms(fn, n: int = 60, warmup: int = 5) -> float:
-    """Median of per-call device times (CUDA events) over ``n`` calls."""
+_SIDE_STREAM = None    # the one stream all graphs are captured on
+
+
+def graph_ms(fn, n: int = 20, reps: int = 15, flush=None) -> float:
+    """Device time of one ``fn()`` in ms: ``n`` calls captured in a CUDA
+    graph, each replay timed with one pair of events over the count, median
+    over ``reps`` replays. The graph keeps the queue full, so the host's time
+    between launches does not show. With ``flush`` (a buffer larger than the
+    L2 cache), every call is preceded by a write of the whole buffer, so that
+    ``fn`` finds its inputs in device memory, and the time of a graph of the
+    writes alone is taken off."""
     import torch
-    for _ in range(warmup):
+    global _SIDE_STREAM
+    if _SIDE_STREAM is None:
+        _SIDE_STREAM = torch.cuda.Stream()
+    side = _SIDE_STREAM
+
+    def capture(body):
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(2):                  # warm-up, scratch allocation
+                body()
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, stream=side):
+            for _ in range(n):
+                body()
+        return g
+
+    def replay_ms(g):
+        g.replay()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            g.replay()
+            e.record()
+            torch.cuda.synchronize()
+            times.append(s.elapsed_time(e))
+        times.sort()
+        return times[len(times) // 2] / n
+
+    if flush is None:
+        return replay_ms(capture(fn))
+
+    def both():
+        flush.zero_()
         fn()
-    pairs = []
-    for _ in range(n):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
+    return replay_ms(capture(both)) - replay_ms(capture(flush.zero_))
+
+
+def host_call_ms(fn, n: int = 200) -> float:
+    """Host wall time of one ``fn()`` call (enqueue only: the queue is
+    drained before and synchronised after, not between)."""
+    import torch
+    for _ in range(5):
         fn()
-        e.record()
-        pairs.append((s, e))
     torch.cuda.synchronize()
-    times = sorted(s.elapsed_time(e) for s, e in pairs)
-    return times[len(times) // 2]
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e3
 
 
 def cell_inputs(B, N, F, H, dtype, seed=0):
@@ -136,62 +195,127 @@ def bound(nbytes, flops, dtype_name):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def cell_args(shape, dtype):
+    """(forward args, backward args) of the wrappers and twins at a shape;
+    the backward's residuals come from the forward twin."""
+    from deeprl_network_tpu_torch.ops import lstm_cell as lc
+    inp, cot = cell_inputs(**shape, dtype=dtype)
+    fwd_args = (inp["wx"], inp["wh"], inp["b"], inp["c"], inp["h"],
+                inp["x"], inp["done"])
+    c_new, _, h_in, c_in = lc.lstm_cell_fwd_ref(*fwd_args)
+    bwd_args = (inp["wx"], inp["wh"], inp["b"], inp["x"], h_in, c_in,
+                c_new, inp["done"], cot["dc_new"], cot["dh_new"])
+    return fwd_args, bwd_args
+
+
 def check_kernels():
-    """Kernels vs twins at the flagship and ragged shapes; timing at the
-    flagship bf16 shape (the main path's). Returns the kernels' entries."""
+    """Kernels vs twins at the flagship, ragged and edge shapes, every
+    variant the dispatch rule can take; timing at the flagship shape (the
+    main path's is bf16). Returns the kernels' entries."""
     import torch
     from deeprl_network_tpu_torch.ops import lstm_cell as lc
     entries = {}
-    for shape_name, shape in (("flagship", FLAGSHIP), ("ragged", RAGGED)):
-        for dt_name in ("float32", "bfloat16"):
-            dt = getattr(torch, dt_name)
-            inp, cot = cell_inputs(**shape, dtype=dt)
-            fwd_args = (inp["wx"], inp["wh"], inp["b"], inp["c"], inp["h"],
-                        inp["x"], inp["done"])
-            got_f = lc.lstm_cell_fwd(*fwd_args)
-            want_f = lc.lstm_cell_fwd_ref(*fwd_args)
-            torch.cuda.synchronize()
-            err_f = max_err(got_f, want_f, TOL[(dt_name, "fwd")],
-                            "c_new,h_new,h_in,c_in")
-            _, _, h_in, c_in = want_f
-            bwd_args = (inp["wx"], inp["wh"], inp["b"], inp["x"], h_in, c_in,
-                        want_f[0], inp["done"], cot["dc_new"], cot["dh_new"])
-            got_b = lc.lstm_cell_bwd(*bwd_args)
-            want_b = lc.lstm_cell_bwd_ref(*bwd_args)
-            torch.cuda.synchronize()
-            err_b = max_err(got_b, want_b, TOL[(dt_name, "bwd")],
-                            "dx,dh,dc_prev,dwx,dwh,db")
-            # bitwise determinism of the backward (no atomics)
-            again = lc.lstm_cell_bwd(*bwd_args)
-            for a, b in zip(got_b, again):
-                if not torch.equal(a, b):
-                    raise AssertionError("lstm_cell_bwd is not deterministic")
-            row = {"shape": shape_name, "dtype": dt_name, **shape,
-                   "fwd_max_abs_err": err_f, "bwd_max_abs_err": err_b}
-            if shape_name == "flagship":
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    cases = [("flagship", FLAGSHIP, "float32", None),
+             ("flagship", FLAGSHIP, "bfloat16", None),
+             ("flagship", FLAGSHIP, "bfloat16", "general"),
+             ("ragged", RAGGED, "float32", None),
+             ("ragged", RAGGED, "bfloat16", None),
+             ("ragged_wide", RAGGED_WIDE, "bfloat16", None),
+             ("ragged_full", RAGGED_FULL, "bfloat16", None),
+             ("odd_width", ODD_WIDTH, "bfloat16", None)]
+    for shape_name, shape, dt_name, forced in cases:
+        dt = getattr(torch, dt_name)
+        variant = forced or lc.kernel_variant(dt, shape["F"], shape["H"])
+        kw = dict(_variant=forced) if forced else {}
+        fwd_args, bwd_args = cell_args(shape, dt)
+        before = dict(lc.LAUNCHES)
+        got_f = lc.lstm_cell_fwd(*fwd_args, **kw)
+        want_f = lc.lstm_cell_fwd_ref(*fwd_args)
+        torch.cuda.synchronize()
+        err_f = max_err(got_f, want_f, TOL[(dt_name, "fwd")],
+                        "c_new,h_new,h_in,c_in")
+        got_n = lc.lstm_cell_fwd(*fwd_args, residuals=False, **kw)
+        torch.cuda.synchronize()
+        if got_n[2] is not None or not all(
+                torch.equal(a, b) for a, b in zip(got_n[:2], got_f[:2])):
+            raise AssertionError("forward without residuals differs")
+        got_b = lc.lstm_cell_bwd(*bwd_args, **kw)
+        want_b = lc.lstm_cell_bwd_ref(*bwd_args)
+        torch.cuda.synchronize()
+        err_b = max_err(got_b, want_b, TOL[(dt_name, "bwd")],
+                        "dx,dh,dc_prev,dwx,dwh,db")
+        # bitwise determinism of the backward (no atomics)
+        again = lc.lstm_cell_bwd(*bwd_args, **kw)
+        for a, b in zip(got_b, again):
+            if not torch.equal(a, b):
+                raise AssertionError("lstm_cell_bwd is not deterministic")
+        moved = {k: v - before[k] for k, v in lc.LAUNCHES.items()
+                 if v != before[k]}
+        if moved != {"lstm_cell_fwd": 2, f"lstm_cell_fwd_{variant}": 2,
+                     "lstm_cell_bwd": 2, f"lstm_cell_bwd_{variant}": 2}:
+            raise AssertionError(f"launch counts moved by {moved}, "
+                                 f"expected the {variant} variant")
+        row = {"shape": shape_name, "dtype": dt_name, "variant": variant,
+               **shape, "fwd_max_abs_err": err_f, "bwd_max_abs_err": err_b}
+        if shape_name == "flagship":
+            fwd = lambda: lc.lstm_cell_fwd(*fwd_args, **kw)
+            bwd = lambda: lc.lstm_cell_bwd(*bwd_args, **kw)
+            row.update(
+                fwd_ms=graph_ms(fwd), fwd_cold_ms=graph_ms(fwd, flush=flush),
+                fwd_call_ms=host_call_ms(fwd),
+                bwd_ms=graph_ms(bwd), bwd_cold_ms=graph_ms(bwd, flush=flush),
+                bwd_call_ms=host_call_ms(bwd))
+            if not forced:
                 row.update(
-                    fwd_ms=cuda_median_ms(lambda: lc.lstm_cell_fwd(*fwd_args)),
-                    fwd_plain_ms=cuda_median_ms(
-                        lambda: lc.lstm_cell_fwd_ref(*fwd_args)),
-                    bwd_ms=cuda_median_ms(lambda: lc.lstm_cell_bwd(*bwd_args)),
-                    bwd_plain_ms=cuda_median_ms(
-                        lambda: lc.lstm_cell_bwd_ref(*bwd_args)))
-                (fb, ff), (bb, bf) = cell_bytes_flops(**shape, dtype=dt)
-                row["fwd_bound_ms"], row["fwd_bound_by"] = bound(fb, ff, dt_name)
-                row["bwd_bound_ms"], row["bwd_bound_by"] = bound(bb, bf, dt_name)
-            log("kernel_check " + json.dumps(row))
-            if shape_name == "flagship" and dt_name == "bfloat16":
-                entries["lstm_cell_fwd"] = dict(
-                    max_abs_err=err_f, ms=row["fwd_ms"],
-                    plain_ms=row["fwd_plain_ms"],
-                    bound_ms=row["fwd_bound_ms"],
-                    bound_by=row["fwd_bound_by"])
-                entries["lstm_cell_bwd"] = dict(
-                    max_abs_err=err_b, ms=row["bwd_ms"],
-                    plain_ms=row["bwd_plain_ms"],
-                    bound_ms=row["bwd_bound_ms"],
-                    bound_by=row["bwd_bound_by"])
+                    fwd_plain_ms=graph_ms(
+                        lambda: lc.lstm_cell_fwd_ref(*fwd_args), n=5),
+                    bwd_plain_ms=graph_ms(
+                        lambda: lc.lstm_cell_bwd_ref(*bwd_args), n=5))
+            (fb, ff), (bb, bf) = cell_bytes_flops(**shape, dtype=dt)
+            row["fwd_bound_ms"], row["fwd_bound_by"] = bound(fb, ff, dt_name)
+            row["bwd_bound_ms"], row["bwd_bound_by"] = bound(bb, bf, dt_name)
+        log("kernel_check " + json.dumps(row))
+        if shape_name == "flagship" and dt_name == "bfloat16":
+            if forced:   # the earlier kernel, for the record only
+                continue
+            for name, d, err in (("lstm_cell_fwd", "fwd", err_f),
+                                 ("lstm_cell_bwd", "bwd", err_b)):
+                entries[name] = dict(
+                    max_abs_err=err, ms=row[f"{d}_ms"],
+                    plain_ms=row[f"{d}_plain_ms"],
+                    bound_ms=row[f"{d}_bound_ms"],
+                    bound_by=row[f"{d}_bound_by"])
     return entries
+
+
+def tune_kernels():
+    """Times of the tensor-core kernels at the flagship bf16 shape for other
+    grids (blocks per agent) than the wrapper's default."""
+    import torch
+    from deeprl_network_tpu_torch.ops import lstm_cell as lc
+    fwd_args, bwd_args = cell_args(FLAGSHIP, torch.bfloat16)
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    for splits in (4, 5, 6, 8, 10):
+        fwd = lambda: lc.lstm_cell_fwd(*fwd_args, _splits=splits)
+        log("tune " + json.dumps(dict(
+            kernel="lstm_cell_fwd", splits=splits,
+            ms=graph_ms(fwd), cold_ms=graph_ms(fwd, flush=flush))))
+        bwd = lambda: lc.lstm_cell_bwd(*bwd_args, _splits=splits)
+        log("tune " + json.dumps(dict(
+            kernel="lstm_cell_bwd", splits=splits,
+            ms=graph_ms(bwd), cold_ms=graph_ms(bwd, flush=flush))))
+    # the backward's two passes apart, at the wrapper's default grid
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            lc.lstm_cell_fwd(*fwd_args)
+            lc.lstm_cell_bwd(*bwd_args)
+        torch.cuda.synchronize()
+    for ev in prof.key_averages():
+        if "lstm" in ev.key:
+            log(f"tune profile: {ev.self_device_time_total / ev.count / 1e3:.5f}"
+                f" ms/launch over {ev.count} launches of {ev.key[:60]}")
 
 
 def make_flagship(device, env_kw=None, **overrides):
@@ -272,8 +396,12 @@ def run_main_path(card: str, n_timed: int = 5):
     dt = sum(step_times)
     launches = dict(lc.LAUNCHES)
     n_steps = n_timed + 1
-    want = {"lstm_cell_fwd": (2 * T + 1) * n_steps,
-            "lstm_cell_bwd": T * n_steps}
+    # every launch of the flagship step takes the tensor-core variant
+    want = {k: 0 for k in lc.LAUNCHES}
+    for k in ("lstm_cell_fwd", "lstm_cell_fwd_tc"):
+        want[k] = (2 * T + 1) * n_steps
+    for k in ("lstm_cell_bwd", "lstm_cell_bwd_tc"):
+        want[k] = T * n_steps
     if launches != want:
         raise AssertionError(f"kernel launches {launches}, expected {want}")
     for k in ("loss", "grad_norm"):
@@ -327,6 +455,12 @@ def profile_step(fns, ts, step_s: float):
     for d, c, k in dev[:20]:
         log(f"profile device: {d / 1e3:10.3f} ms {d / 1e6 / total:7.2%} "
             f"{c:7d} x {k[:100]}")
+    # cross-check of the kernels phase's graph-replay times: the cell's
+    # kernels as the step ran them (inputs fresh from the embed ops)
+    for d, c, k in dev:
+        if "lstm" in k:
+            log(f"profile cell kernel: {d / c / 1e3:.5f} ms/launch over "
+                f"{c} launches of {k[:60]}")
     for d, c, k in host[:12]:
         log(f"profile host:   {d / 1e3:10.3f} ms {c:7d} x {k[:100]}")
 
@@ -335,6 +469,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile one flagship train_step")
+    ap.add_argument("--tune", action="store_true",
+                    help="also time the tensor-core kernels on other grids")
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="stop after the kernels phase, with exit code 2 "
+                         "and no result line (a short first run of a new "
+                         "kernel)")
     args = ap.parse_args(argv)
 
     import torch
@@ -360,13 +500,17 @@ def main(argv=None) -> int:
         f"wall, nvcc per source in parallel)")
 
     entries = check_kernels()
+    if args.tune:
+        tune_kernels()
+    if args.kernels_only:
+        return 2
     check_reference()
     launches, sps, fns, ts = run_main_path(card)
     step_s = 120 * 768 / sps
     if args.profile:
         profile_step(fns, ts, step_s)
 
-    src = "deeprl_network_tpu_torch/ops/csrc/lstm_cell.cu"
+    src = "deeprl_network_tpu_torch/ops/csrc/lstm_cell_tc.cu"
     replaces = {"lstm_cell_fwd": "deeprl_network_tpu/ops/pallas_lstm.py:108",
                 "lstm_cell_bwd": "deeprl_network_tpu/ops/pallas_lstm.py:233"}
     kernels = [dict(name=name, route="cuda", source=src,

@@ -1,4 +1,8 @@
-// Fused per-agent LSTM cell, forward and backward, for NVIDIA Hopper (sm_90a).
+// Fused per-agent LSTM cell, forward and backward, for NVIDIA Hopper (sm_90a):
+// the general kernels, with f32 products on the CUDA cores. They serve
+// float32 (which TF32 tensor cores could not hold to 1e-5) and bf16 at widths
+// that lstm_cell_tc.cu (bf16 on the tensor cores, the flagship path) does
+// not take.
 //
 // Replaces the Pallas TPU kernels of deeprl_network_tpu/ops/pallas_lstm.py:
 //   lstm_fwd_kernel             <- _fwd_call's inner `kernel` (pallas_lstm.py:52-117)
@@ -32,8 +36,8 @@
 // reading four stored gate tensors), and the weight-gradient reduction writes
 // only gz_T once (one extra [N, B, 4H] tensor) instead of per-tile weight
 // partials. The products run on CUDA cores from shared memory, so at this
-// width the kernels are bound by issue rate, not by bytes; tensor cores
-// (wgmma) and TMA are later work.
+// width the kernels are bound by issue rate, not by bytes; lstm_cell_tc.cu
+// runs the same function on the tensor cores.
 //
 // Determinism: Hopper runs blocks in no order, so the TPU kernel's
 // accumulation of dwx/dwh/db across sequential batch tiles becomes a second

@@ -6,14 +6,19 @@ policies apply N independent LSTM cells (per-agent weights) to a
 [B, N, features] activation every control step. ``fused_agent_lstm`` runs
 that whole cell (both products, bias, the four gates, the done-masked state
 update) as one kernel launch, and its backward as one more pair of
-launches that recompute the gates instead of storing them
-(``csrc/lstm_cell.cu`` states the design and its bound).
+launches that recompute the gates instead of storing them.
 
-Dispatch is by the tensors' device: CUDA tensors launch the kernels (and
+Dispatch is first by the tensors' device: CUDA tensors launch a kernel (and
 raise if a launch fails; there is no fallback), CPU tensors run the plain
 PyTorch twins ``lstm_cell_fwd_ref`` / ``lstm_cell_bwd_ref``, which keep the
-kernels' signatures and rounding points. Both wrappers count their kernel
-launches in ``LAUNCHES``.
+kernels' signatures and rounding points. On the card there are two
+hand-written kernels, chosen by ``kernel_variant(dtype, F, H)``:
+``csrc/lstm_cell_tc.cu`` (bf16 on the tensor cores, the flagship path) and
+``csrc/lstm_cell.cu`` (f32 products on the CUDA cores: float32, and widths
+the first does not take). Each source states its design and its bound.
+Both wrappers count their launches in ``LAUNCHES``: totals under
+``lstm_cell_fwd`` / ``lstm_cell_bwd`` and, beside them, per variant
+(``lstm_cell_fwd_tc``, ``lstm_cell_fwd_general``, ...).
 
 Shapes: params = (wx [N,F,4H], wh [N,H,4H], b [N,4H]); carry = (c, h) each
 [B,N,H]; x [B,N,F]; done [B]. float32 or bfloat16 (one dtype for all),
@@ -23,31 +28,44 @@ f32 accumulation and gate math.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from types import SimpleNamespace
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from deeprl_network_tpu_torch.ops import _build
 
 # kernel launches by name, counted by the wrappers where they launch
-LAUNCHES = {"lstm_cell_fwd": 0, "lstm_cell_bwd": 0}
+LAUNCHES = {"lstm_cell_fwd": 0, "lstm_cell_bwd": 0,
+            "lstm_cell_fwd_tc": 0, "lstm_cell_fwd_general": 0,
+            "lstm_cell_bwd_tc": 0, "lstm_cell_bwd_general": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_BT = 32       # batch rows per block, kBT in lstm_cell.cu
-_MAX_K = 256   # largest F + H, kKMax in lstm_cell.cu
-_lib: Optional[ctypes.CDLL] = None
+_BT = 32          # batch rows per block, kBT in lstm_cell.cu
+_MAX_K = 256      # largest F + H, kKMax in lstm_cell.cu
+_TC_BT = 32       # batch rows per tile, kBT in lstm_cell_tc.cu
+_TC_MAX_FH = 64   # largest F and H, kMaxFH in lstm_cell_tc.cu
+_lib: Optional[SimpleNamespace] = None
+_sm_counts: Dict[int, int] = {}
+_scratch_cache: Dict[tuple, tuple] = {}
 
 
-def _kernels() -> ctypes.CDLL:
+def _kernels() -> SimpleNamespace:
+    """Both libraries, built (in parallel) and loaded at first use."""
     global _lib
     if _lib is None:
-        lib = _build.load("lstm_cell")
+        _build.build(["lstm_cell", "lstm_cell_tc"])
+        general = _build.load("lstm_cell")
+        tc = _build.load("lstm_cell_tc")
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.lstm_cell_fwd.argtypes = [I] + [P] * 11 + [I] * 4 + [P]
-        lib.lstm_cell_fwd.restype = I
-        lib.lstm_cell_bwd.argtypes = [I] + [P] * 18 + [I] * 4 + [P]
-        lib.lstm_cell_bwd.restype = I
-        _lib = lib
+        general.lstm_cell_fwd.argtypes = [I] + [P] * 11 + [I] * 4 + [P]
+        general.lstm_cell_bwd.argtypes = [I] + [P] * 18 + [I] * 4 + [P]
+        tc.lstm_cell_tc_fwd.argtypes = [P] * 11 + [I] * 5 + [P]
+        tc.lstm_cell_tc_bwd.argtypes = [P] * 18 + [I] * 5 + [P]
+        for fn in (general.lstm_cell_fwd, general.lstm_cell_bwd,
+                   tc.lstm_cell_tc_fwd, tc.lstm_cell_tc_bwd):
+            fn.restype = I
+        _lib = SimpleNamespace(general=general, tc=tc)
     return _lib
 
 
@@ -127,9 +145,97 @@ def lstm_cell_bwd_ref(wx, wh, b, x, h_in, c_in, c_new, done, dc_new, dh_new):
     return dx, dh, dc_prev, dwx, dwh, db
 
 
-def lstm_cell_fwd(wx, wh, b, c, h, x, done, residuals: bool = True):
-    """Forward cell: (c', h', h_in, c_in). Launches the CUDA kernel for
-    CUDA tensors, the plain twin for CPU tensors."""
+def kernel_variant(dtype: torch.dtype, F: int, H: int) -> str:
+    """Which hand-written kernel a CUDA call takes: a pure function of the
+    dtype and the widths. ``"tc"`` (``csrc/lstm_cell_tc.cu``: bf16 operands
+    on the tensor cores) for bfloat16 with F and H multiples of 16 and at
+    most 64; ``"general"`` (``csrc/lstm_cell.cu``: CUDA-core FMAs in f32)
+    for float32, which TF32 tensor cores could not hold to 1e-5, and for
+    every other width."""
+    if dtype == torch.bfloat16 and F % 16 == 0 and H % 16 == 0 \
+            and 0 < F <= _TC_MAX_FH and 0 < H <= _TC_MAX_FH:
+        return "tc"
+    return "general"
+
+
+def tc_splits(B: int, N: int, sm_count: int) -> int:
+    """Blocks per agent of the tensor-core kernels (grid N x splits, each
+    block walking ceil(tiles / splits) batch tiles of 32 rows with its
+    agent's weights staged once): as many as fill the card's SMs once, at
+    most one per tile."""
+    tiles = -(-B // _TC_BT)
+    return max(1, min(tiles, sm_count // max(N, 1)))
+
+
+def _sm_count(device: torch.device) -> int:
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _sm_counts:
+        _sm_counts[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _sm_counts[idx]
+
+
+def _scratch(device, stream: int, N: int, B: int, G: int, splits: int):
+    """The backward's scratch (gz_T [N, B, G] bf16 and the db partials
+    [N, splits, G] f32), kept per (device, stream) and reused by later calls
+    of the same shape (another shape replaces it). Both tensors are written
+    and consumed by the two launches of one wrapper call, so reuse is safe
+    as long as all calls that share them run in order on one stream, which
+    the key's stream ensures."""
+    key, shape = (str(device), stream), (N, B, G, splits)
+    got = _scratch_cache.get(key)
+    if got is None or got[0] != shape:
+        got = (shape,
+               torch.empty((N, B, G), dtype=torch.bfloat16, device=device),
+               torch.empty((N, splits, G), dtype=torch.float32,
+                           device=device))
+        _scratch_cache[key] = got
+    return got[1], got[2]
+
+
+def _carve(buf: torch.Tensor, shapes):
+    """Contiguous views of the given shapes, one after another in ``buf``."""
+    out, at = [], 0
+    for shape in shapes:
+        n = 1
+        for d in shape:
+            n *= d
+        out.append(buf[at:at + n].view(shape))
+        at += n
+    return out
+
+
+def _count(name: str, variant: str) -> None:
+    LAUNCHES[name] += 1
+    LAUNCHES[f"{name}_{variant}"] += 1
+
+
+def _variant_for(x: torch.Tensor, F: int, H: int, tensors,
+                 _variant: Optional[str]) -> str:
+    variant = kernel_variant(x.dtype, F, H) if _variant is None else _variant
+    if variant not in ("tc", "general"):
+        raise ValueError(f"unknown kernel variant {variant!r}")
+    if variant == "tc":
+        if kernel_variant(x.dtype, F, H) != "tc":
+            raise ValueError(f"the tensor-core kernels do not take "
+                             f"{x.dtype}, F={F}, H={H}")
+        for t in tensors:
+            if t is not None and t.data_ptr() % 16:
+                raise ValueError("the tensor-core kernels take 16-byte "
+                                 "aligned tensors")
+    return variant
+
+
+def lstm_cell_fwd(wx, wh, b, c, h, x, done, residuals: bool = True, *,
+                  _variant: Optional[str] = None,
+                  _splits: Optional[int] = None):
+    """Forward cell: (c', h', h_in, c_in). Launches a CUDA kernel for CUDA
+    tensors (which one: ``kernel_variant``), the plain twin for CPU
+    tensors. The outputs are views of one allocation; nothing is reused
+    between calls. ``_variant`` and ``_splits`` are for
+    measurements (the earlier kernel at a shape the rule gives to the new
+    one, other grids); the model's path never passes them."""
     if x.device.type == "cpu":
         return lstm_cell_fwd_ref(wx, wh, b, c, h, x, done, residuals)
     if x.device.type != "cuda":
@@ -144,27 +250,39 @@ def lstm_cell_fwd(wx, wh, b, c, h, x, done, residuals: bool = True):
         raise ValueError("lstm_cell_fwd: inconsistent shapes")
     if F + H > _MAX_K:
         raise ValueError(f"lstm_cell_fwd: F + H = {F + H} exceeds {_MAX_K}")
+    variant = _variant_for(x, F, H, (x, wx, wh, b, c, h, done), _variant)
     lib = _kernels()
-    h_new, c_new = torch.empty_like(h), torch.empty_like(c)
-    h_in = torch.empty_like(h) if residuals else None
-    c_in = torch.empty_like(c) if residuals else None
+    n_out = 4 if residuals else 2
+    outs = _carve(torch.empty(n_out * B * N * H, dtype=x.dtype,
+                              device=x.device), [(B, N, H)] * n_out)
+    h_new, c_new = outs[:2]
+    h_in, c_in = outs[2:] if residuals else (None, None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.lstm_cell_fwd(code, _ptr(x), _ptr(h), _ptr(c), _ptr(done),
-                                _ptr(wx), _ptr(wh), _ptr(b), _ptr(h_new),
-                                _ptr(c_new), _ptr(h_in), _ptr(c_in),
-                                B, N, F, H, stream)
+        ptrs = (_ptr(x), _ptr(h), _ptr(c), _ptr(done), _ptr(wx), _ptr(wh),
+                _ptr(b), _ptr(h_new), _ptr(c_new), _ptr(h_in), _ptr(c_in))
+        if variant == "tc":
+            splits = _splits or tc_splits(B, N, _sm_count(x.device))
+            err = lib.tc.lstm_cell_tc_fwd(*ptrs, B, N, F, H, splits, stream)
+        else:
+            err = lib.general.lstm_cell_fwd(code, *ptrs, B, N, F, H, stream)
     if err != 0:
-        raise RuntimeError(f"lstm_cell_fwd kernel launch failed: "
-                           f"cudaError {err}")
-    LAUNCHES["lstm_cell_fwd"] += 1
+        raise RuntimeError(f"lstm_cell_fwd ({variant}) kernel launch "
+                           f"failed: cudaError {err}")
+    _count("lstm_cell_fwd", variant)
     return c_new, h_new, h_in, c_in
 
 
-def lstm_cell_bwd(wx, wh, b, x, h_in, c_in, c_new, done, dc_new, dh_new):
+def lstm_cell_bwd(wx, wh, b, x, h_in, c_in, c_new, done, dc_new, dh_new, *,
+                  _variant: Optional[str] = None,
+                  _splits: Optional[int] = None):
     """Backward cell: (dx, dh, dc_prev, dwx, dwh, db), the weight grads in
-    f32. Launches the CUDA kernels for CUDA tensors, the plain twin for CPU
-    tensors."""
+    f32. Launches the CUDA kernels for CUDA tensors (which: see
+    ``kernel_variant``), the plain twin for CPU tensors. The activation
+    grads are views of one fresh allocation and the weight grads of a
+    second; the tensor-core variant's scratch is reused between calls
+    (``_scratch``), the general variant's is allocated per call.
+    ``_variant`` and ``_splits`` are for measurements only."""
     if x.device.type == "cpu":
         return lstm_cell_bwd_ref(wx, wh, b, x, h_in, c_in, c_new, done,
                                  dc_new, dh_new)
@@ -177,30 +295,38 @@ def lstm_cell_bwd(wx, wh, b, x, h_in, c_in, c_new, done, dc_new, dh_new):
     H = h_in.shape[-1]
     if F + H > _MAX_K:
         raise ValueError(f"lstm_cell_bwd: F + H = {F + H} exceeds {_MAX_K}")
+    variant = _variant_for(
+        x, F, H, (x, wx, wh, b, h_in, c_in, c_new, done, dc_new, dh_new),
+        _variant)
     lib = _kernels()
     G = 4 * H
-    n_tiles = -(-B // _BT)
-    dx = torch.empty_like(x)
-    dh, dc_prev = torch.empty_like(h_in), torch.empty_like(c_in)
-    gz = torch.empty((N, B, G), dtype=x.dtype, device=x.device)
-    db_part = torch.empty((N, n_tiles, G), dtype=torch.float32,
-                          device=x.device)
-    f32 = dict(dtype=torch.float32, device=x.device)
-    dwx = torch.empty((N, F, G), **f32)
-    dwh = torch.empty((N, H, G), **f32)
-    db = torch.empty((N, G), **f32)
+    dx, dh, dc_prev = _carve(
+        torch.empty(B * N * (F + 2 * H), dtype=x.dtype, device=x.device),
+        [(B, N, F), (B, N, H), (B, N, H)])
+    dwx, dwh, db = _carve(
+        torch.empty(N * (F + H + 1) * G, dtype=torch.float32,
+                    device=x.device), [(N, F, G), (N, H, G), (N, G)])
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.lstm_cell_bwd(code, _ptr(x), _ptr(h_in), _ptr(c_in),
-                                _ptr(c_new), _ptr(dc_new), _ptr(dh_new),
-                                _ptr(done), _ptr(wx), _ptr(wh), _ptr(b),
-                                _ptr(dx), _ptr(dh), _ptr(dc_prev), _ptr(gz),
-                                _ptr(db_part), _ptr(dwx), _ptr(dwh), _ptr(db),
-                                B, N, F, H, stream)
+        if variant == "tc":
+            splits = _splits or tc_splits(B, N, _sm_count(x.device))
+            gz, db_part = _scratch(x.device, stream, N, B, G, splits)
+        else:
+            gz = torch.empty((N, B, G), dtype=x.dtype, device=x.device)
+            db_part = torch.empty((N, -(-B // _BT), G), dtype=torch.float32,
+                                  device=x.device)
+        ptrs = (_ptr(x), _ptr(h_in), _ptr(c_in), _ptr(c_new), _ptr(dc_new),
+                _ptr(dh_new), _ptr(done), _ptr(wx), _ptr(wh), _ptr(b),
+                _ptr(dx), _ptr(dh), _ptr(dc_prev), _ptr(gz), _ptr(db_part),
+                _ptr(dwx), _ptr(dwh), _ptr(db))
+        if variant == "tc":
+            err = lib.tc.lstm_cell_tc_bwd(*ptrs, B, N, F, H, splits, stream)
+        else:
+            err = lib.general.lstm_cell_bwd(code, *ptrs, B, N, F, H, stream)
     if err != 0:
-        raise RuntimeError(f"lstm_cell_bwd kernel launch failed: "
-                           f"cudaError {err}")
-    LAUNCHES["lstm_cell_bwd"] += 1
+        raise RuntimeError(f"lstm_cell_bwd ({variant}) kernel launch "
+                           f"failed: cudaError {err}")
+    _count("lstm_cell_bwd", variant)
     return dx, dh, dc_prev, dwx, dwh, db
 
 

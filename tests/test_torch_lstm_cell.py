@@ -249,7 +249,40 @@ CUDA_CASES = [  # (B, N, F, H, dtype, tol fwd, tol grads)
     (768, 25, 64, 64, torch.float32, 1e-5, 1e-4),
     (8, 3, 16, 16, torch.bfloat16, 0.05, 0.05),
     (768, 25, 64, 64, torch.bfloat16, 0.05, 0.05),
+    # the tensor-core kernels' edges: a short single tile, ragged last
+    # tiles at unequal widths and at full width
+    (12, 3, 16, 16, torch.bfloat16, 0.05, 0.05),
+    (37, 5, 32, 48, torch.bfloat16, 0.05, 0.05),
+    (100, 25, 64, 64, torch.bfloat16, 0.05, 0.05),
+    # bf16 at a width that takes the general kernel
+    (37, 5, 24, 40, torch.bfloat16, 0.05, 0.05),
 ]
+
+# (dtype, F, H) -> the kernel a CUDA call takes
+VARIANT_CASES = [
+    (torch.bfloat16, 64, 64, "tc"),
+    (torch.bfloat16, 16, 16, "tc"),
+    (torch.bfloat16, 32, 48, "tc"),
+    (torch.bfloat16, 24, 40, "general"),   # not multiples of 16
+    (torch.bfloat16, 64, 40, "general"),
+    (torch.bfloat16, 128, 64, "general"),  # wider than the staged weights
+    (torch.bfloat16, 64, 80, "general"),
+    (torch.float32, 64, 64, "general"),    # TF32 would not hold 1e-5
+    (torch.float32, 16, 16, "general"),
+]
+
+
+@pytest.mark.parametrize("dtype,F,H,want", VARIANT_CASES)
+def test_kernel_variant_rule(dtype, F, H, want):
+    assert lc.kernel_variant(dtype, F, H) == want
+
+
+def test_tc_splits_rule():
+    """Blocks per agent: fill the SMs once, never more than one per tile."""
+    assert lc.tc_splits(768, 25, 132) == 5      # 125 blocks, 24 tiles
+    assert lc.tc_splits(100, 25, 132) == 4      # 4 tiles
+    assert lc.tc_splits(12, 3, 132) == 1
+    assert lc.tc_splits(768, 200, 132) == 1     # more agents than SMs
 
 
 @needs_cuda
@@ -277,6 +310,29 @@ def test_cuda_done_masks_carry_gradient():
 
 
 @needs_cuda
+@pytest.mark.parametrize("dtype,F,H,want", VARIANT_CASES)
+def test_cuda_variant_counts_and_bitwise_backward(dtype, F, H, want):
+    """A CUDA call launches the variant the rule names, and only that one;
+    two backward calls on the same inputs agree bitwise."""
+    args, done = setup(37, 3, F, H)
+    t = [torch.tensor(a, device="cuda").to(dtype) for a in args]
+    wx, wh, b, c, h, x = t
+    d = torch.tensor(done, device="cuda")
+    before = dict(lc.LAUNCHES)
+    c_new, h_new, h_in, c_in = lc.lstm_cell_fwd(wx, wh, b, c, h, x, d)
+    bwd = lambda: lc.lstm_cell_bwd(wx, wh, b, x, h_in, c_in, c_new, d,
+                                   torch.cos(c_new), torch.sin(h_new))
+    first, second = bwd(), bwd()
+    torch.cuda.synchronize()
+    for a, bb in zip(first, second):
+        assert torch.equal(a, bb)
+    moved = {k: v - before[k] for k, v in lc.LAUNCHES.items()
+             if v != before[k]}
+    assert moved == {"lstm_cell_fwd": 1, f"lstm_cell_fwd_{want}": 1,
+                     "lstm_cell_bwd": 2, f"lstm_cell_bwd_{want}": 2}
+
+
+@needs_cuda
 def test_cuda_kernels_count_launches_and_reject_bad_input():
     args, done = setup()
     before = dict(lc.LAUNCHES)
@@ -289,3 +345,5 @@ def test_cuda_kernels_count_launches_and_reject_bad_input():
         lc.lstm_cell_fwd(wx.double(), wh, b, c, h, x, d)
     with pytest.raises(ValueError):
         lc.lstm_cell_fwd(wx, wh, b, c, h.transpose(0, 1), x, d)
+    with pytest.raises(ValueError):   # f32 cannot take the bf16 kernels
+        lc.lstm_cell_fwd(wx, wh, b, c, h, x, d, _variant="tc")
