@@ -10,19 +10,35 @@ Phases (any failure raises, exits non-zero and prints no result line):
   2. build: compile every CUDA kernel from ``deeprl_network_tpu_torch/ops/csrc``
      with nvcc (one process per source, all started together);
   3. kernels: hold each kernel against its plain PyTorch twin on the card at
-     the main path's shape (B=768, N=25, F=H=64) in f32 and bf16, at ragged
+     the main path's shape (B=768, N=25, F=H=64) in f32 and bf16, at the
+     CACC platoon's shape (B=32, N=8), at B=1 (eval and record), at ragged
      shapes and at a width that takes the general kernel, forward and
-     backward; time them at the main path's shape from replays of a CUDA
-     graph of 20 launches (``ms``: inputs warm in L2; ``cold_ms``: L2
-     flushed before every launch; ``call_ms``: the host's time per call),
-     the earlier general kernel in bf16 beside the tensor-core one;
+     backward; time them at the main path's, the platoon's and the B=1
+     shape from replays of a CUDA graph of 20 launches (``ms``: inputs warm
+     in L2; ``cold_ms``: L2 flushed before every launch; ``call_ms``: the
+     host's time per call), the earlier general kernel in bf16 beside the
+     tensor-core one;
   4. reference: a small f32 train step on the card against the same step on
      the CPU (plain twins, held against the JAX package by the CPU tests);
   5. main path: the flagship MA2C_NC train step on the 5x5 grid at full
      width (B=768 envs, T=120, bf16 with f32 masters, sparse_comm, remat)
-     through ``make_a2c``: a warm-up step and 5 timed steps, with the kernel
+     through ``make_a2c``: a warm-up step and 3 timed steps, with the kernel
      launch counts read around them;
-  6. (--profile) device busy share and kernel time by name over one step.
+  6. families: the same step for each of the six agents (a warm-up and 2
+     timed steps each), launch counts asserted; for IA2C_CU also that the
+     weight consensus ran;
+  7. replay: a small f32 MA2C_NC update with ``fused_grad=False`` against
+     the fused update from the same state and noise, launch counts asserted;
+  8. cacc: the CACC platoon from ``configs/config_ma2c_nc_cacc_catchup.ini``
+     and ``configs/config_ia2c_cu_cacc_slowdown.ini`` at the files' own
+     sizes (3 train steps each, launch counts asserted), and two small f32
+     updates on the card against the CPU port;
+  9. eval/record: ``eval_episode`` (sampled, greedy) and ``record_episode``
+     (greedy, controller) on the grid and on the platoon with the params
+     trained above, on the card against the same calls on the CPU with the
+     same noise, and one whole sampled episode each on the card;
+ 10. (--profile) device busy share and kernel time by name over one
+     flagship step, and the number of kernels in one step of each family.
 
 Output: a kernels JSON line and the card's name and power limit on lines
 before the last; the last line is
@@ -42,6 +58,12 @@ import time
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 FLAGSHIP = dict(B=768, N=25, F=64, H=64)
+CACC = dict(B=32, N=8, F=64, H=64)          # the platoon configs' own size
+EVAL_B1 = dict(B=1, N=25, F=64, H=64)       # eval and record on the grid
+TIMED_SHAPES = ("flagship", "cacc", "eval_b1")
+AGENTS = ("ia2c", "ia2c_fp", "ia2c_cu", "ma2c_nc", "ma2c_cnet", "ma2c_dial")
+CACC_CONFIGS = ("configs/config_ma2c_nc_cacc_catchup.ini",
+                "configs/config_ia2c_cu_cacc_slowdown.ini")
 RAGGED = dict(B=12, N=3, F=16, H=16)
 RAGGED_WIDE = dict(B=37, N=5, F=32, H=48)
 RAGGED_FULL = dict(B=100, N=25, F=64, H=64)
@@ -219,6 +241,10 @@ def check_kernels():
     cases = [("flagship", FLAGSHIP, "float32", None),
              ("flagship", FLAGSHIP, "bfloat16", None),
              ("flagship", FLAGSHIP, "bfloat16", "general"),
+             ("cacc", CACC, "float32", None),
+             ("cacc", CACC, "bfloat16", None),
+             ("eval_b1", EVAL_B1, "float32", None),
+             ("eval_b1", EVAL_B1, "bfloat16", None),
              ("ragged", RAGGED, "float32", None),
              ("ragged", RAGGED, "bfloat16", None),
              ("ragged_wide", RAGGED_WIDE, "bfloat16", None),
@@ -258,7 +284,7 @@ def check_kernels():
                                  f"expected the {variant} variant")
         row = {"shape": shape_name, "dtype": dt_name, "variant": variant,
                **shape, "fwd_max_abs_err": err_f, "bwd_max_abs_err": err_b}
-        if shape_name == "flagship":
+        if shape_name in TIMED_SHAPES:
             fwd = lambda: lc.lstm_cell_fwd(*fwd_args, **kw)
             bwd = lambda: lc.lstm_cell_bwd(*bwd_args, **kw)
             row.update(
@@ -276,12 +302,15 @@ def check_kernels():
             row["fwd_bound_ms"], row["fwd_bound_by"] = bound(fb, ff, dt_name)
             row["bwd_bound_ms"], row["bwd_bound_by"] = bound(bb, bf, dt_name)
         log("kernel_check " + json.dumps(row))
-        if shape_name == "flagship" and dt_name == "bfloat16":
-            if forced:   # the earlier kernel, for the record only
-                continue
+        # the result line's entries: the tensor-core kernels at the flagship
+        # shape, the general kernels at the platoon's shape (both as their
+        # main paths run them); a forced variant is for the record only
+        suffix = {("flagship", "bfloat16"): "",
+                  ("cacc", "float32"): "_general"}.get((shape_name, dt_name))
+        if suffix is not None and not forced:
             for name, d, err in (("lstm_cell_fwd", "fwd", err_f),
                                  ("lstm_cell_bwd", "bwd", err_b)):
-                entries[name] = dict(
+                entries[name + suffix] = dict(
                     max_abs_err=err, ms=row[f"{d}_ms"],
                     plain_ms=row[f"{d}_plain_ms"],
                     bound_ms=row[f"{d}_bound_ms"],
@@ -318,9 +347,10 @@ def tune_kernels():
                 f" ms/launch over {ev.count} launches of {ev.key[:60]}")
 
 
-def make_flagship(device, env_kw=None, **overrides):
-    """The flagship configuration through make_a2c; ``overrides`` replace
-    ModelConfig fields, ``env_kw`` adds EnvConfig fields."""
+def make_flagship(device, env_kw=None, agent="ma2c_nc", **overrides):
+    """The flagship configuration through make_a2c for ``agent``;
+    ``overrides`` replace ModelConfig fields, ``env_kw`` adds EnvConfig
+    fields."""
     from deeprl_network_tpu_torch.config import (
         EnvConfig, ModelConfig, TrainConfig,
     )
@@ -332,60 +362,115 @@ def make_flagship(device, env_kw=None, **overrides):
     env = LargeGridEnv(EnvConfig(scenario="large_grid", coop_gamma=0.9,
                                  **(env_kw or {})), device=device)
     return make_a2c(env, ModelConfig(**model),
-                    TrainConfig(total_step=1_000_000), agent="ma2c_nc",
+                    TrainConfig(total_step=1_000_000), agent=agent,
                     device=device)
 
 
-def check_reference():
+def make_cacc(path, device, env_kw=None, **overrides):
+    """The CACC platoon of a ``configs/*.ini`` file through the port's
+    ``load_config`` and ``make_a2c``; ``env_kw`` / ``overrides`` replace
+    EnvConfig / ModelConfig fields."""
+    import dataclasses
+    from deeprl_network_tpu_torch.config import load_config
+    from deeprl_network_tpu_torch.envs.cacc import CACCEnv
+    from deeprl_network_tpu_torch.utils.rollout import make_a2c
+    root = os.path.dirname(os.path.abspath(__file__))
+    cfg = load_config(os.path.join(root, path))
+    env = CACCEnv(dataclasses.replace(cfg.env, **(env_kw or {})),
+                  device=device)
+    return make_a2c(env, dataclasses.replace(cfg.model, **overrides),
+                    cfg.train, agent=cfg.agent, device=device)
+
+
+def zero_counts():
+    from deeprl_network_tpu_torch.ops import lstm_cell as lc
+    for k in lc.LAUNCHES:
+        lc.LAUNCHES[k] = 0
+
+
+def expect_counts(what, fwd, bwd, variant):
+    """Raise unless the wrappers launched ``fwd`` forward and ``bwd``
+    backward kernels since ``zero_counts()``, all of ``variant``; returns
+    the counts."""
+    from deeprl_network_tpu_torch.ops import lstm_cell as lc
+    want = {k: 0 for k in lc.LAUNCHES}
+    want.update({"lstm_cell_fwd": fwd, f"lstm_cell_fwd_{variant}": fwd,
+                 "lstm_cell_bwd": bwd, f"lstm_cell_bwd_{variant}": bwd})
+    got = dict(lc.LAUNCHES)
+    if got != want:
+        raise AssertionError(f"{what}: kernel launches {got}, expected "
+                             f"{want}")
+    return got
+
+
+def check_finite_and_moved(what, m, params, p0):
+    import torch
+    from deeprl_network_tpu_torch.models.policies import tree_leaves
+    for k in ("loss", "grad_norm"):
+        if not torch.isfinite(torch.as_tensor(m[k])).all():
+            raise AssertionError(f"{what}: {k} is not finite")
+    leaves = tree_leaves(params)
+    if any(p.dtype != torch.float32 for p in leaves):
+        raise AssertionError(f"{what}: master params are not f32")
+    if all(torch.equal(a, b) for a, b in zip(leaves, p0)):
+        raise AssertionError(f"{what}: params did not change")
+
+
+def check_reference(what, make, n_act):
     """A small f32 train step on the card against the CPU port (twins),
-    same params and noise, two updates across an episode end."""
+    same params and noise, two updates across an episode end. ``make``
+    builds the small configuration (T=8, B=4) on a device."""
     import numpy as np
     import torch
     from deeprl_network_tpu_torch.models.policies import tree_leaves
-    small = dict(env_kw=dict(episode_length_sec=60), batch_size=8,
-                 num_envs=4, num_fc=16, num_lstm=16, compute_dtype="float32")
-    cpu = make_flagship("cpu", **small)
-    gpu = make_flagship("cuda", **small)
+    cpu, gpu = make("cpu"), make("cuda")
     ts_c = cpu.init_state(0)
     ts_g = gpu.init_state(0, params=ts_c.params)
     rng = np.random.default_rng(1)
     worst = 0.0
     for _ in range(2):
-        u = rng.random((8, 4, 25, 5)).astype(np.float32)
+        u = rng.random((8, 4, cpu.spec.n_agent, n_act)).astype(np.float32)
         g = torch.tensor(-np.log(-np.log(np.maximum(u, 1e-30))))
         ts_c, m_c = cpu.train_step(ts_c, gumbel=g)
         ts_g, m_g = gpu.train_step(ts_g, gumbel=g)
         for k in ("loss", "grad_norm", "value_loss", "entropy"):
             a, b = float(m_g[k]), float(m_c[k])
             if not abs(a - b) <= 1e-4 * abs(b) + 1e-6:
-                raise AssertionError(f"reference: {k} {a} on the card vs "
+                raise AssertionError(f"{what}: {k} {a} on the card vs "
                                      f"{b} on the CPU")
         for a, b in zip(tree_leaves(ts_g.params), tree_leaves(ts_c.params)):
             d = float((a.cpu() - b).abs().max())
             if d > 1e-5:
-                raise AssertionError(f"reference: params differ by {d}")
+                raise AssertionError(f"{what}: params differ by {d}")
             worst = max(worst, d)
-    log(f"reference: 2 f32 updates on the card match the CPU port "
+    if float(m_g["episode_len"]) != 12.0:
+        raise AssertionError(f"{what}: no episode end was crossed")
+    log(f"{what}: 2 f32 updates on the card match the CPU port "
         f"(max param diff {worst:.2e}, loss {float(m_g['loss']):.6f})")
 
 
-def run_main_path(card: str, n_timed: int = 5):
-    """Flagship train steps through make_a2c; returns (launch counts,
-    env-steps/s)."""
+SMALL = dict(batch_size=8, num_envs=4, num_fc=16, num_lstm=16,
+             compute_dtype="float32")
+
+
+def small_grid(device, **overrides):
+    return make_flagship(device, env_kw=dict(episode_length_sec=60),
+                         **dict(SMALL, **overrides))
+
+
+def timed_steps(what, fns, ts, n_timed, fwd_per_step, bwd_per_step, variant):
+    """A warm-up ``train_step`` and ``n_timed`` timed ones from ``ts``, with
+    the launch counts set to 0 before and asserted after; checks that the
+    result is finite, the masters f32 and the params changed. Returns
+    (state, last metrics, launch counts, per-step seconds)."""
     import torch
     from deeprl_network_tpu_torch.models.policies import tree_leaves
-    from deeprl_network_tpu_torch.ops import lstm_cell as lc
-    fns = make_flagship("cuda")
-    T, B = 120, 768
-    ts = fns.init_state(0)
-    torch.cuda.reset_peak_memory_stats()
     p0 = [p.clone() for p in tree_leaves(ts.params)]
-    for k in lc.LAUNCHES:
-        lc.LAUNCHES[k] = 0
+    zero_counts()
     t0 = time.perf_counter()
     ts, m = fns.train_step(ts)          # warm-up
     torch.cuda.synchronize()
-    log(f"main path: warm-up train_step {time.perf_counter() - t0:.2f} s, "
+    log(f"{what}: warm-up train_step {time.perf_counter() - t0:.2f} s, "
         f"loss {float(m['loss']):.6f}")
     step_times = []
     for _ in range(n_timed):
@@ -393,25 +478,26 @@ def run_main_path(card: str, n_timed: int = 5):
         ts, m = fns.train_step(ts)
         torch.cuda.synchronize()
         step_times.append(time.perf_counter() - t0)
-    dt = sum(step_times)
-    launches = dict(lc.LAUNCHES)
     n_steps = n_timed + 1
-    # every launch of the flagship step takes the tensor-core variant
-    want = {k: 0 for k in lc.LAUNCHES}
-    for k in ("lstm_cell_fwd", "lstm_cell_fwd_tc"):
-        want[k] = (2 * T + 1) * n_steps
-    for k in ("lstm_cell_bwd", "lstm_cell_bwd_tc"):
-        want[k] = T * n_steps
-    if launches != want:
-        raise AssertionError(f"kernel launches {launches}, expected {want}")
-    for k in ("loss", "grad_norm"):
-        if not torch.isfinite(torch.as_tensor(m[k])).all():
-            raise AssertionError(f"main path: {k} is not finite")
-    leaves = tree_leaves(ts.params)
-    if any(p.dtype != torch.float32 for p in leaves):
-        raise AssertionError("main path: master params are not f32")
-    if all(torch.equal(a, b) for a, b in zip(leaves, p0)):
-        raise AssertionError("main path: params did not change")
+    launches = expect_counts(what, fwd_per_step * n_steps,
+                             bwd_per_step * n_steps, variant)
+    check_finite_and_moved(what, m, ts.params, p0)
+    return ts, m, launches, step_times
+
+
+def run_main_path(card: str, n_timed: int = 3):
+    """Flagship train steps through make_a2c; returns (launch counts,
+    env-steps/s, fns, state)."""
+    import torch
+    fns = make_flagship("cuda")
+    T, B = 120, 768
+    ts = fns.init_state(0)
+    torch.cuda.reset_peak_memory_stats()
+    # every launch of the flagship step takes the tensor-core variant:
+    # rollout, bootstrap and the remat recompute forward, T backward
+    ts, m, launches, step_times = timed_steps(
+        "main path", fns, ts, n_timed, 2 * T + 1, T, "tc")
+    dt = sum(step_times)
     sps = n_timed * T * B / dt
     log("main path: " + json.dumps({
         k: (float(v) if torch.is_tensor(v) else v) for k, v in m.items()}))
@@ -421,6 +507,208 @@ def run_main_path(card: str, n_timed: int = 5):
         f"peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     return launches, sps, fns, ts
+
+
+def count_step_kernels(fns, ts):
+    """(kernels, their summed device seconds) of one ``train_step`` under
+    torch.profiler."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fns.train_step(ts)
+        torch.cuda.synchronize()
+    evs = [ev for ev in prof.key_averages()
+           if ev.device_type == DeviceType.CUDA and ev.self_device_time_total]
+    return (sum(ev.count for ev in evs),
+            sum(ev.self_device_time_total for ev in evs) / 1e6)
+
+
+def agent_spread(params) -> float:
+    """Mean variance across agents of the LSTM input weights."""
+    return float(params.lstm.wx.var(dim=0).mean())
+
+
+def run_families(card: str, profile: bool, n_timed: int = 2):
+    """The flagship step for each of the six agents."""
+    import torch
+    T, B = 120, 768
+    for agent in AGENTS:
+        what = f"families {agent}"
+        fns = make_flagship("cuda", agent=agent)
+        ts = fns.init_state(0)
+        spread0 = agent_spread(ts.params)
+        ts, m, launches, step_times = timed_steps(
+            what, fns, ts, n_timed, 2 * T + 1, T, "tc")
+        line = {"agent": agent, "loss": float(m["loss"]),
+                "grad_norm": float(m["grad_norm"]),
+                "env_steps_per_s": n_timed * T * B / sum(step_times),
+                "step_s": [round(t, 4) for t in step_times],
+                "launches_per_step": {
+                    k: v // (n_timed + 1) for k, v in launches.items() if v},
+                "card": card}
+        spread = agent_spread(ts.params)
+        if agent == "ia2c_cu":
+            # averaging over closed neighbourhoods of 3 to 5 agents cuts
+            # the spread between agents; an RMSProp step barely moves it
+            if not spread < 0.5 * spread0:
+                raise AssertionError(
+                    f"{what}: spread between agents {spread0} -> {spread}: "
+                    "the weight consensus did not run")
+            line["agent_spread"] = [spread0, spread]
+        elif not spread > 0.9 * spread0:
+            raise AssertionError(f"{what}: spread between agents "
+                                 f"{spread0} -> {spread} without consensus")
+        if profile:
+            line["kernels_per_step"], line["kernel_s_per_step"] = \
+                count_step_kernels(fns, ts)
+        log("families " + json.dumps(line))
+        del fns, ts
+        torch.cuda.empty_cache()
+
+
+def check_replay():
+    """A small f32 MA2C_NC update on the card through the replay path
+    against the fused path, from the same state and noise (both with
+    remat); asserts each path's launch counts."""
+    import numpy as np
+    import torch
+    from deeprl_network_tpu_torch.models.policies import tree_leaves
+    T = 8
+    g = torch.tensor(np.random.default_rng(2).gumbel(
+        size=(T, 4, 25, 5)).astype(np.float32))
+    out = {}
+    # fused: T rollout + 1 bootstrap + T recomputed forwards, T backwards;
+    # replay: T rollout + 1 bootstrap, then T replayed + T recomputed
+    for fused, n_fwd in ((True, 2 * T + 1), (False, 3 * T + 1)):
+        fns = small_grid("cuda", fused_grad=fused, remat=True)
+        ts = fns.init_state(0)
+        zero_counts()
+        ts, m = fns.train_step(ts, gumbel=g)
+        torch.cuda.synchronize()
+        expect_counts(f"replay (fused_grad={fused})", n_fwd, T, "general")
+        out[fused] = (ts, m)
+    (ts_f, m_f), (ts_r, m_r) = out[True], out[False]
+    for k in ("loss", "grad_norm", "value_loss", "entropy", "step_reward"):
+        a, b = float(m_r[k]), float(m_f[k])
+        if not abs(a - b) <= 1e-4 * abs(b) + 1e-6:
+            raise AssertionError(f"replay: {k} {a} against fused {b}")
+    worst = max(float((a - b).abs().max()) for a, b in zip(
+        tree_leaves(ts_r.params), tree_leaves(ts_f.params)))
+    if worst > 1e-5:
+        raise AssertionError(f"replay: params differ from fused by {worst}")
+    log(f"replay: the f32 replay update on the card equals the fused update "
+        f"(loss {float(m_r['loss']):.6f} vs {float(m_f['loss']):.6f}, max "
+        f"param diff {worst:.2e}); launches per step {3 * T + 1} forward + "
+        f"{T} backward (replay) vs {2 * T + 1} + {T} (fused), general "
+        f"variant, T={T}")
+
+
+def run_cacc(card: str, n_timed: int = 2):
+    """The two CACC configurations at the files' own sizes, then small f32
+    updates against the CPU port. Returns {config: (fns, state)} and the
+    launch counts of the first configuration's run."""
+    import torch
+    trained, first_launches = {}, None
+    for path in CACC_CONFIGS:
+        what = f"cacc {os.path.basename(path)}"
+        fns = make_cacc(path, "cuda")
+        ts = fns.init_state(0)
+        T, B = 120, 32
+        if fns.steps_per_update != T * B or fns.spec.n_agent != 8 \
+                or fns.spec.n_lstm != 64 or fns.spec.n_fc != 64:
+            raise AssertionError(f"{what}: not the size the file states")
+        # no remat in these files: T rollout + 1 bootstrap forwards
+        ts, m, launches, step_times = timed_steps(
+            what, fns, ts, n_timed, T + 1, T, "general")
+        first_launches = first_launches or launches
+        log("cacc " + json.dumps({
+            "config": path, "loss": float(m["loss"]),
+            "grad_norm": float(m["grad_norm"]),
+            "env_steps_per_s": n_timed * T * B / sum(step_times),
+            "step_s": [round(t, 4) for t in step_times],
+            "launches_per_step": {
+                k: v // (n_timed + 1) for k, v in launches.items() if v},
+            "card": card}))
+        trained[path] = (fns, ts)
+        # initial noise off: the CPU's and the card's generators differ
+        check_reference(
+            f"cacc reference {os.path.basename(path)}",
+            lambda device: make_cacc(
+                path, device, env_kw=dict(episode_length=12,
+                                          init_noise_h=0.0, init_noise_v=0.0),
+                **SMALL), 4)
+    return trained, first_launches
+
+
+def check_eval_record(what, gpu_fns, cpu_fns, params, horizon, episode,
+                      card):
+    """``eval_episode`` and ``record_episode`` on the card against the same
+    calls on the CPU port with the same params and noise over ``horizon``
+    steps: action sequences equal, everything else within 1e-4 relative;
+    the cell's launches counted (one forward per step, none for the
+    controller); then one whole sampled episode (``episode`` steps, the
+    env's default horizon) on the card."""
+    import numpy as np
+    import torch
+    from deeprl_network_tpu_torch.models.policies import tree_map
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    spec = gpu_fns.spec
+    g = torch.tensor(np.random.default_rng(3).gumbel(
+        size=(horizon, spec.n_agent, spec.n_a_max)).astype(np.float32))
+    calls = [
+        ("eval sampled", "eval_episode", dict(greedy=False, gumbel=g), True),
+        ("eval greedy", "eval_episode", dict(greedy=True), True),
+        ("record greedy", "record_episode", dict(policy="greedy"), True),
+        ("record controller", "record_episode", dict(policy="controller"),
+         False),
+    ]
+    for name, fn, kw, uses_policy in calls:
+        zero_counts()
+        t0 = time.perf_counter()
+        got = getattr(gpu_fns, fn)(params if uses_policy else None, 0,
+                                   horizon, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        expect_counts(f"{what} {name}", horizon if uses_policy else 0, 0,
+                      "general")
+        want = getattr(cpu_fns, fn)(cpu_params if uses_policy else None, 0,
+                                    horizon, **kw)
+        if got.keys() != want.keys():
+            raise AssertionError(f"{what} {name}: keys differ")
+        for k, b in want.items():
+            a = got[k].cpu()
+            if a.shape != b.shape:
+                raise AssertionError(f"{what} {name}: {k} shape {a.shape}")
+            if not a.is_floating_point():
+                if not torch.equal(a, b):
+                    raise AssertionError(
+                        f"{what} {name}: {k} differs from the CPU port's")
+                continue
+            tol = 1e-4 * max(1.0, float(b.abs().max()))
+            if not (torch.isfinite(a).all()
+                    and float((a - b).abs().max()) <= tol):
+                raise AssertionError(
+                    f"{what} {name}: {k} off by "
+                    f"{float((a - b).abs().max())} (tol {tol})")
+        ret = float(got["episode_return"] if fn == "eval_episode"
+                    else (got["reward"].sum(-1) * got["alive"]).sum())
+        log(f"{what} {name}: {horizon} steps on the card match the CPU "
+            f"port; return {ret:.4f}, wall {wall:.3f} s on {card}")
+    zero_counts()
+    t0 = time.perf_counter()
+    out = gpu_fns.eval_episode(params, 0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n = episode
+    expect_counts(f"{what} whole episode", n, 0, "general")
+    if not torch.isfinite(out["episode_return"]):
+        raise AssertionError(f"{what}: whole episode failed")
+    log(f"{what} whole sampled episode: {n} steps, executed "
+        f"{float(out['episode_len']):.0f}, return "
+        f"{float(out['episode_return']):.4f}, wall {wall:.3f} s "
+        f"({wall / n * 1e3:.3f} ms a step) on {card}")
 
 
 def profile_step(fns, ts, step_s: float):
@@ -504,21 +792,50 @@ def main(argv=None) -> int:
         tune_kernels()
     if args.kernels_only:
         return 2
-    check_reference()
+    check_reference("reference", small_grid, 5)
     launches, sps, fns, ts = run_main_path(card)
     step_s = 120 * 768 / sps
     if args.profile:
         profile_step(fns, ts, step_s)
+    grid_params = ts.params
+    del ts
+    run_families(card, args.profile)
+    check_replay()
+    cacc, cacc_launches = run_cacc(card)
+    check_eval_record("eval/record grid", fns, make_flagship("cpu"),
+                      grid_params, 120, 720, card)
+    cacc_fns, cacc_ts = cacc[CACC_CONFIGS[0]]
+    # initial noise off: the CPU's and the card's generators differ
+    quiet = dict(init_noise_h=0.0, init_noise_v=0.0)
+    check_eval_record(
+        "eval/record cacc", make_cacc(CACC_CONFIGS[0], "cuda", env_kw=quiet),
+        make_cacc(CACC_CONFIGS[0], "cpu", env_kw=quiet), cacc_ts.params, 200,
+        600, card)
+    zero_counts()
+    out = cacc_fns.eval_episode(cacc_ts.params, 0)
+    expect_counts("eval cacc with initial noise", 600, 0, "general")
+    log(f"eval cacc with initial noise: return "
+        f"{float(out['episode_return']):.4f} over "
+        f"{float(out['episode_len']):.0f} steps")
 
-    src = "deeprl_network_tpu_torch/ops/csrc/lstm_cell_tc.cu"
+    sources = {"": "deeprl_network_tpu_torch/ops/csrc/lstm_cell_tc.cu",
+               "_general": "deeprl_network_tpu_torch/ops/csrc/lstm_cell.cu"}
     replaces = {"lstm_cell_fwd": "deeprl_network_tpu/ops/pallas_lstm.py:108",
                 "lstm_cell_bwd": "deeprl_network_tpu/ops/pallas_lstm.py:233"}
-    kernels = [dict(name=name, route="cuda", source=src,
-                    replaces=replaces[name], launches=launches[name],
-                    max_abs_err=e["max_abs_err"], ms=e["ms"],
-                    plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
-                    bound_by=e["bound_by"], library_ms=None)
-               for name, e in entries.items()]
+    kernels = []
+    for name, e in entries.items():
+        base = name.replace("_general", "")
+        # the flagship run's counts for the tensor-core kernels, the first
+        # platoon run's for the general ones
+        n = (cacc_launches if name.endswith("_general") else launches)[name]
+        if n <= 0:
+            raise AssertionError(f"{name} was not launched on its path")
+        kernels.append(dict(
+            name=name, route="cuda", source=sources[name[len(base):]],
+            replaces=replaces[base], launches=n,
+            max_abs_err=e["max_abs_err"], ms=e["ms"],
+            plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
+            bound_by=e["bound_by"], library_ms=None))
     log(f"total: {time.perf_counter() - t_start:.1f} s; "
         f"throughput {sps:.1f} env-steps/s on {card}")
     print(json.dumps({"kernels": kernels}))

@@ -144,6 +144,7 @@ class TrafficNetworkEnv(Env):
         self._t_node_lane_mask = f32(self._node_lane_mask)
         self._t_delay_onehot = f32(onehot)
         self._t_gate = f32(topo.phase_gate).reshape(M * P_max, L)
+        self._t_valid = f32(topo.phase_valid)
         self._t_route = f32(topo.route)
         self._t_route_out = self._t_route.sum(1)
         self._t_entry = f32(topo.entry_lane)
@@ -283,6 +284,52 @@ class TrafficNetworkEnv(Env):
                 "entered": entered_in,
                 "dropped": dropped}
         return s_new, self._obs(s_new), reward.float(), done, info
+
+    def record(self, s: NetworkState) -> Dict[str, torch.Tensor]:
+        """Per-step traffic series (queue / wait / wave per node), each
+        with the leading [B] axis."""
+        node_mask_t = self._t_node_lane_mask.T
+        in_transit = s.transit.sum(1)
+        return {"node_queue": s.queue @ node_mask_t,
+                "node_wait": s.wait @ node_mask_t,
+                "node_wave": (s.queue + in_transit) @ node_mask_t,
+                "total_queue": s.queue.sum(-1),
+                "total_transit": in_transit.sum(-1),
+                "dropped": s.dropped}
+
+    # ---- greedy baseline ----
+
+    def greedy_action(self, s: NetworkState, on: str = "wave",
+                      delta: float = 0.0) -> torch.Tensor:
+        """[B, M] int64: per node, the valid phase serving the largest
+        demand (the first such phase on a tie).
+
+        ``on='wave'`` scores phases by all vehicles on the served lanes
+        (queued + approaching), the observation the learned policies get;
+        ``on='queue'`` by stop-line queues only. ``delta > 0`` adds
+        hysteresis: keep the current phase unless the best competing
+        phase's score exceeds it by more than ``delta`` vehicles (every
+        switch costs ``yellow_interval_sec`` of lost discharge)."""
+        M, P = self._t_valid.shape
+        x = s.queue if on == "queue" else s.queue + s.transit.sum(1)
+        served = (x @ self._t_gate.T).reshape(-1, M, P)
+        served = torch.where(self._t_valid > 0, served,
+                             torch.full_like(served, -torch.inf))
+        best = torch.argmax(served, dim=-1)
+        if delta <= 0:
+            return best
+        prev = s.prev_phase
+        keep = torch.gather(served, -1, prev[..., None])[..., 0]
+        top = torch.gather(served, -1, best[..., None])[..., 0]
+        return torch.where(top > keep + delta, best, prev)
+
+    def controller_action(self, s: NetworkState) -> torch.Tensor:
+        """The strongest known hand controller of this env family:
+        hysteresis at ``cfg.hysteresis_delta``, scored on
+        ``cfg.hysteresis_on``. The naive baseline of record and the
+        kickstart teacher."""
+        return self.greedy_action(s, on=str(self.cfg.hysteresis_on),
+                                  delta=float(self.cfg.hysteresis_delta))
 
     def prev_action(self, s: NetworkState) -> torch.Tensor:
         """[B, M] previous control action (current signal phase)."""

@@ -7,16 +7,34 @@
 - spatial discounting: r_tilde = D @ r;
 - loss per agent: -sum_t log pi(a_t|s_t) Adv_t + 0.5 value_coef
   sum_t (R_t - V_t)^2 - beta sum_t H(pi_t), summed over agents and
-  averaged over time and env batch.
-
-The replay loss ``a2c_loss`` (``fused_grad=False``) is not ported yet.
+  averaged over time and env batch. The replay loss ``a2c_loss`` runs the
+  policy again over a stored T-step window from its initial LSTM carry
+  (truncated BPTT with recompute).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
+
+from deeprl_network_tpu_torch.models.policies import (
+    Carry, PolicyConsts, PolicyParams, PolicySpec, policy_step_batched,
+)
+
+
+class Rollout(NamedTuple):
+    """One T-step window of B env instances, time-major. ``a2c_loss`` reads
+    obs, fps, prev_dones and actions; the rest is the record of the rollout."""
+
+    obs: torch.Tensor         # [T, B, N, n_s_max]
+    fps: torch.Tensor         # [T, B, N, n_a_max] fingerprints fed each step
+    prev_dones: torch.Tensor  # [T, B] done flag preceding each step
+    actions: torch.Tensor     # [T, B, N] int64
+    rewards: torch.Tensor     # [T, B, N] raw env rewards
+    values: torch.Tensor      # [T, B, N] V(s_t) from the rollout policy
+    dones: torch.Tensor       # [T, B] done AFTER each step
 
 
 def normalize_rewards(r: torch.Tensor, reward_norm: float,
@@ -90,3 +108,39 @@ def a2c_loss_terms(logp_a: torch.Tensor, entropy: torch.Tensor,
     entropy_loss = -torch.sum(torch.mean(entropy, dim=lead)) * entropy_coef
     total = policy_loss + value_loss + entropy_loss
     return total, LossStats(total, policy_loss, value_loss, mean_entropy)
+
+
+def a2c_loss(spec: PolicySpec, params: PolicyParams, init_carry: Carry,
+             roll: Rollout, returns: torch.Tensor, advs: torch.Tensor,
+             entropy_coef: float, value_coef: float, remat: bool = False,
+             consts: Optional[PolicyConsts] = None
+             ) -> Tuple[torch.Tensor, LossStats]:
+    """Joint A2C loss over a [T, B, ...] window: replays the policy over the
+    T steps from the stored initial carry (truncated BPTT). ``params`` must
+    have passed ``mask_comm_params``.
+
+    The JAX version takes one env's window, is vmapped over envs, and the
+    caller means the per-env losses (each a mean over T, summed over N).
+    Batched, that is one mean over (T, B) and a sum over N, which
+    ``a2c_loss_terms`` computes on the [T, B, N] arrays directly.
+
+    ``remat``: each step's forward runs under ``torch.utils.checkpoint`` and
+    is recomputed in the backward pass, so only the per-step carry is kept.
+    """
+
+    def step(carry, ob, fp, pd):
+        return policy_step_batched(spec, params, carry, ob, fp, pd, consts)
+
+    carry, logits, values = init_carry, [], []
+    prev_dones = roll.prev_dones.to(roll.obs.dtype)
+    for t in range(roll.obs.shape[0]):
+        args = (carry, roll.obs[t], roll.fps[t], prev_dones[t])
+        if remat:
+            carry, lo, v = checkpoint(step, *args, use_reentrant=False)
+        else:
+            carry, lo, v = step(*args)
+        logits.append(lo)
+        values.append(v)
+    logp_a, entropy = action_stats(torch.stack(logits), roll.actions)
+    return a2c_loss_terms(logp_a, entropy, torch.stack(values), returns,
+                          advs, entropy_coef, value_coef)

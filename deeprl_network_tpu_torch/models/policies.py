@@ -7,14 +7,21 @@ blocks are zero, or, with ``sparse_comm``, packed at use time to the
 neighbour lists [N, K=max_degree, d_in, d_out]. Every function here works on
 a batch of B env instances: activations are [B, N, ...].
 
-This slice ports the IA2C embedding (``CommType.NONE``) and NeurComm
-(``CommType.NEURCOMM``, MA2C_NC):
-    e_i = relu(W_obs[i] o_i + sum_{j in N(i)} W_fp[i,j] fp_j
-               + sum_{j in N(i)} W_msg[i,j] h_j),
-with the fingerprints detached (data, not a gradient path) and the gradient
-flowing into the neighbours' hidden states. FP, COMMNET, DIAL, neighbour
-observations and weight consensus are not ported yet (ROADMAP.md queue 1
-item 9) and raise ``NotImplementedError``.
+Family -> comm type, each a term added to the own-obs embedding before the
+relu (``_embed``):
+- IA2C      -> ``CommType.NONE``: nothing added;
+- IA2C_FP   -> ``CommType.FP``: sum_j W_fp[i,j] fp_j (fingerprints are data,
+  detached);
+- IA2C_CU   -> ``CommType.NONE`` plus :func:`consensus_update` after every
+  optimizer step;
+- MA2C_NC   -> ``CommType.NEURCOMM``: the FP term plus sum_j W_msg[i,j] h_j,
+  the gradient flowing into the neighbours' hidden states;
+- MA2C_CNET -> ``CommType.COMMNET``: one shared map [n_lstm, n_fc] of the mean
+  neighbour hidden state;
+- MA2C_DIAL -> ``CommType.DIAL``: per-agent messages m_j = W_dial[j] h_j + b_j
+  delivered through per-edge blocks [n_msg, n_fc].
+``neighbor_obs`` adds sum_j W_nobs[i,j] (obs_alpha o_j), detached, to any of
+them.
 """
 
 from __future__ import annotations
@@ -50,9 +57,6 @@ AGENT_TO_COMM = {
     "ma2c_cnet": CommType.COMMNET,
     "ma2c_dial": CommType.DIAL,
 }
-
-_PORTED_COMM = (CommType.NONE, CommType.NEURCOMM)
-
 
 @dataclass(frozen=True)
 class PolicySpec:
@@ -100,17 +104,6 @@ class PolicySpec:
         return ((1.0 - self.action_mask) * BIG_NEG).astype(np.float32)
 
 
-def check_ported(spec: PolicySpec) -> None:
-    """Raise for the policy features this slice does not port."""
-    if spec.comm_type not in _PORTED_COMM:
-        raise NotImplementedError(
-            f"comm type {spec.comm_type.value!r} is not ported yet "
-            "(ROADMAP.md queue 1 item 9)")
-    if spec.neighbor_obs:
-        raise NotImplementedError(
-            "neighbor_obs is not ported yet (ROADMAP.md queue 1 item 9)")
-
-
 class PolicyConsts(NamedTuple):
     """Device copies of a spec's static tables, built once per run so the
     step itself copies nothing from the host."""
@@ -119,15 +112,18 @@ class PolicyConsts(NamedTuple):
     valid: torch.Tensor       # [N, K, 1, 1] f32
     adj: torch.Tensor         # [N, N, 1, 1] f32
     logit_mask: torch.Tensor  # [N, A] f32
+    deg: torch.Tensor         # [N, 1] f32 max(degree, 1), the COMMNET mean
 
 
 def policy_consts(spec: PolicySpec, device) -> PolicyConsts:
     idx, valid = spec.neighbor_lists()
+    adj = torch.as_tensor(spec.adj(), device=device)
     return PolicyConsts(
         idx=torch.as_tensor(idx.astype(np.int64), device=device),
         valid=torch.as_tensor(valid, device=device)[:, :, None, None],
-        adj=torch.as_tensor(spec.adj(), device=device)[:, :, None, None],
-        logit_mask=torch.as_tensor(spec.logit_mask(), device=device))
+        adj=adj[:, :, None, None],
+        logit_mask=torch.as_tensor(spec.logit_mask(), device=device),
+        deg=torch.clamp(adj.sum(-1, keepdim=True), min=1.0))
 
 
 class PolicyParams(NamedTuple):
@@ -135,10 +131,13 @@ class PolicyParams(NamedTuple):
     lstm: LSTMParams                     # [N]: n_fc -> n_lstm
     actor: FCParams                      # [N]: n_lstm -> n_a_max
     critic: FCParams                     # [N]: n_lstm -> 1
-    w_fp: Optional[torch.Tensor]         # [N, N, n_a_max, n_fc] (NEURCOMM)
-    w_msg: Optional[torch.Tensor]        # NEURCOMM: [N, N, n_lstm, n_fc]
-    w_dial: Optional[FCParams]           # DIAL (not ported)
-    w_nobs: Optional[torch.Tensor] = None  # neighbor_obs (not ported)
+    w_fp: Optional[torch.Tensor]         # [N, N, n_a_max, n_fc] (FP/NEURCOMM)
+    w_msg: Optional[torch.Tensor]        # NEURCOMM: [N, N, n_lstm, n_fc];
+                                         # DIAL: [N, N, n_msg, n_fc];
+                                         # COMMNET: [n_lstm, n_fc] shared
+    w_dial: Optional[FCParams]           # [N]: n_lstm -> n_msg (DIAL)
+    w_nobs: Optional[torch.Tensor] = None  # [N, N, n_s_max, n_fc]
+                                         # (neighbor_obs)
 
 
 class Carry(NamedTuple):
@@ -193,8 +192,8 @@ def init_policy_params(generator: torch.Generator, spec: PolicySpec,
                        dtype=torch.float32, device=None) -> PolicyParams:
     """Orthogonal init per block; per-edge blocks scaled by 1/sqrt(deg) so
     the summed message keeps the variance of the reference's concat-ortho
-    init; non-edge blocks zero."""
-    check_ported(spec)
+    init; non-edge blocks zero. Leaves are drawn from ``generator`` in the
+    order w_obs, lstm, actor, critic, w_fp, w_msg, w_dial, w_nobs."""
     n, s, a = spec.n_agent, spec.n_s_max, spec.n_a_max
     kw = dict(dtype=dtype, generator=generator, device=device)
     adj = spec.adj()
@@ -208,14 +207,26 @@ def init_policy_params(generator: torch.Generator, spec: PolicySpec,
                      **kw)
     actor = fc_init(spec.n_lstm, a, scale=0.01, batch_shape=(n,), **kw)
     critic = fc_init(spec.n_lstm, 1, scale=1.0, batch_shape=(n,), **kw)
-    w_fp = w_msg = None
-    if spec.comm_type == CommType.NEURCOMM:
+    w_fp = w_msg = w_dial = w_nobs = None
+    ct = spec.comm_type
+    if ct in (CommType.FP, CommType.NEURCOMM):
         w_fp = ortho_init((n, n, a, spec.n_fc), np.sqrt(2.0), **kw) \
             * edge_scale
+    if ct == CommType.NEURCOMM:
         w_msg = ortho_init((n, n, spec.n_lstm, spec.n_fc), np.sqrt(2.0),
                            **kw) * edge_scale
-    params = PolicyParams(w_obs, lstm, actor, critic, w_fp, w_msg, None,
-                          None)
+    elif ct == CommType.COMMNET:
+        w_msg = ortho_init((spec.n_lstm, spec.n_fc), np.sqrt(2.0), **kw)
+    elif ct == CommType.DIAL:
+        w_msg = ortho_init((n, n, spec.n_msg, spec.n_fc), np.sqrt(2.0),
+                           **kw) * edge_scale
+        w_dial = fc_init(spec.n_lstm, spec.n_msg, scale=np.sqrt(2.0),
+                         batch_shape=(n,), **kw)
+    if spec.neighbor_obs:
+        w_nobs = ortho_init((n, n, s, spec.n_fc), np.sqrt(2.0), **kw) \
+            * edge_scale
+    params = PolicyParams(w_obs, lstm, actor, critic, w_fp, w_msg, w_dial,
+                          w_nobs)
     # non-edge blocks start (and stay) zero; see mask_comm_params
     return mask_comm_params(spec, params, sparse=False)
 
@@ -232,8 +243,8 @@ def mask_comm_params(spec: PolicySpec, params: PolicyParams,
     dense [N, N, din, dout] blocks to the neighbour lists [N, K, din, dout]
     (``spec.sparse_comm``). Done once per update, outside the T-step loop;
     gradients flow through the mask (or the gather) back into the dense
-    blocks, so non-edge blocks get zero gradient."""
-    check_ported(spec)
+    blocks, so non-edge blocks get zero gradient. COMMNET's shared 2-D
+    ``w_msg`` has no edge blocks and passes through untouched."""
     if not _needs_edge_mask(spec):
         return params
     if consts is None:
@@ -245,29 +256,51 @@ def mask_comm_params(spec: PolicySpec, params: PolicyParams,
     else:
         pack = lambda w: w * consts.adj.to(w.dtype)
     w_fp = pack(params.w_fp) if params.w_fp is not None else None
-    w_msg = pack(params.w_msg) if params.w_msg is not None else None
-    return params._replace(w_fp=w_fp, w_msg=w_msg)
+    w_nobs = pack(params.w_nobs) if params.w_nobs is not None else None
+    w_msg = params.w_msg
+    if w_msg is not None and spec.comm_type in (CommType.NEURCOMM,
+                                                CommType.DIAL):
+        w_msg = pack(w_msg)
+    return params._replace(w_fp=w_fp, w_msg=w_msg, w_nobs=w_nobs)
 
 
 def _embed(spec: PolicySpec, params: PolicyParams, h_prev: torch.Tensor,
            obs: torch.Tensor, fp: torch.Tensor,
            consts: PolicyConsts) -> torch.Tensor:
     """Pre-LSTM input embedding [B, N, n_fc]: own obs through the per-agent
-    fc plus the NeurComm message terms."""
-    check_ported(spec)
+    fc plus the comm type's message term. Einsum letters: b env, n receiving
+    agent, m sending agent (dense), k neighbour slot (packed), x the sender's
+    feature (obs, fingerprint, hidden state or DIAL message), d DIAL message
+    width, f embedding."""
     sparse = spec.sparse_comm and spec.neighbor_mask is not None
+    idx = consts.idx
+
+    def edge_sum(x, w):
+        """sum over senders of x[sender] @ w[receiver, sender]: w packed
+        [N, K, X, F] by mask_comm_params, or dense [N, N, X, F]."""
+        if sparse:
+            return torch.einsum("bnkx,nkxf->bnf", x[:, idx], w)
+        return torch.einsum("bmx,nmxf->bnf", x, w)
+
     e = torch.einsum("bns,nsf->bnf", obs, params.w_obs.w) + params.w_obs.b
-    if spec.comm_type == CommType.NEURCOMM:
-        fp_in = fp.detach()
-        if sparse:  # packed [N, K, A, F] by mask_comm_params
-            e = e + torch.einsum("bnka,nkaf->bnf", fp_in[:, consts.idx],
-                                 params.w_fp)
-            # differentiable comm: gradient flows into neighbours' h
-            e = e + torch.einsum("bnkh,nkhf->bnf", h_prev[:, consts.idx],
-                                 params.w_msg)
-        else:
-            e = e + torch.einsum("bma,nmaf->bnf", fp_in, params.w_fp)
-            e = e + torch.einsum("bmh,nmhf->bnf", h_prev, params.w_msg)
+    ct = spec.comm_type
+    if spec.neighbor_obs:
+        # alpha-scaled neighbour observations: data only, like fingerprints
+        e = e + edge_sum(obs.detach() * spec.obs_alpha, params.w_nobs)
+    if ct in (CommType.FP, CommType.NEURCOMM):
+        e = e + edge_sum(fp.detach(), params.w_fp)
+    if ct == CommType.NEURCOMM:
+        # differentiable comm: gradient flows into neighbours' h
+        e = e + edge_sum(h_prev, params.w_msg)
+    elif ct == CommType.COMMNET:
+        # in the activations' dtype, so that the cell sees one dtype
+        adj = consts.adj[:, :, 0, 0].to(h_prev.dtype)
+        mean_h = (adj @ h_prev) / consts.deg.to(h_prev.dtype)
+        e = e + mean_h @ params.w_msg
+    elif ct == CommType.DIAL:
+        msg = (torch.einsum("bmh,mhd->bmd", h_prev, params.w_dial.w)
+               + params.w_dial.b)
+        e = e + edge_sum(msg, params.w_msg)
     return torch.relu(e)
 
 
@@ -297,3 +330,101 @@ def policy_step_batched(spec: PolicySpec, params: PolicyParams,
     value = (torch.einsum("bnh,nhv->bnv", h2, params.critic.w)
              + params.critic.b)[..., 0]
     return Carry(c2, h2), logits, value
+
+
+# ---- IA2C_CU weight consensus ----
+
+def consensus_matrix(neighbor_mask: np.ndarray) -> np.ndarray:
+    """Row-normalized (A + I): theta_i <- mean over N(i) u {i}."""
+    a = neighbor_mask.astype(np.float32) + np.eye(len(neighbor_mask),
+                                                 dtype=np.float32)
+    return a / a.sum(1, keepdims=True)
+
+
+def _agent_mix(mix: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """out[i] = sum_j mix[i, j] x[j] over the leading agent axis. Weight
+    averaging must be exact whatever the compute dtype and the TF32 switch
+    say, so the product runs in float64 (which no tensor core shortens) and
+    is rounded once to x's dtype."""
+    out = mix.double() @ x.double().reshape(x.shape[0], -1)
+    return out.reshape((mix.shape[0],) + x.shape[1:]).to(x.dtype)
+
+
+def _masked_axis_consensus(closed: torch.Tensor, leaf: torch.Tensor,
+                           valid: torch.Tensor, axis: int) -> torch.Tensor:
+    """Consensus-average ``leaf`` [N, ...] over the closed neighbourhood,
+    restricted along ``axis`` to the slices each agent actually uses.
+
+    valid: [N, K] with K = leaf.shape[axis]; slice k of agent j enters the
+    average only where valid[j, k] = 1, and the mean renormalizes by the
+    number of contributing neighbours per slice. Slices invalid for agent i
+    itself keep their own value. With an all-ones mask this reduces exactly
+    to the plain row-normalized (A + I) average."""
+    lv = leaf.movedim(axis, 1)                              # [N, K, ...]
+    vm = valid.reshape(valid.shape + (1,) * (lv.ndim - 2))
+    num = _agent_mix(closed, vm * lv)
+    den = torch.clamp(_agent_mix(closed, valid), min=1.0)
+    out = torch.where(vm > 0, num / den.reshape(vm.shape), lv)
+    return out.movedim(1, axis)
+
+
+def consensus_update(params: PolicyParams, neighbor_mask: np.ndarray,
+                     action_mask: Optional[np.ndarray] = None,
+                     obs_mask: Optional[np.ndarray] = None) -> PolicyParams:
+    """IA2C_CU post-update weight consensus: per-agent weights are averaged
+    over the closed neighbourhood.
+
+    With ``action_mask`` / ``obs_mask`` (heterogeneous graphs) the average
+    is shape-aware: actor-head columns are averaged only across neighbours
+    for which that action index is valid, and obs-embedding rows only
+    across neighbours that use that obs dim, renormalized by the
+    contributing count; an agent's padded slices are kept as they are.
+    Dense per-edge blocks [N, N, ...] average block (i, j) only over
+    neighbours k that also own an edge to j. Leaves without a leading agent
+    axis (COMMNET's shared message map) are returned untouched. On all-ones
+    masks the actor/obs handling reduces exactly to the plain average."""
+    n = len(neighbor_mask)
+    dev = params.w_obs.w.device
+    closed_np = neighbor_mask.astype(np.float32) + np.eye(n, dtype=np.float32)
+    closed = torch.as_tensor(closed_np, device=dev)
+    mix = torch.as_tensor(closed_np / closed_np.sum(1, keepdims=True),
+                          device=dev)
+    adj = torch.as_tensor(neighbor_mask.astype(np.float32), device=dev)
+
+    def plain(leaf):
+        if leaf.ndim == 0 or leaf.shape[0] != n:
+            return leaf                      # no agent axis: not averaged
+        return _agent_mix(mix, leaf)
+
+    def edge_blocks(leaf):
+        if leaf is not None and leaf.ndim >= 2 and leaf.shape[:2] == (n, n):
+            return _masked_axis_consensus(closed, leaf, adj, axis=1)
+        return tree_map(plain, leaf)
+
+    if action_mask is None and obs_mask is None:
+        return tree_map(plain, params)
+
+    actor, w_obs = params.actor, params.w_obs
+    if action_mask is not None:
+        am = torch.as_tensor(action_mask.astype(np.float32), device=dev)
+        actor = FCParams(
+            w=_masked_axis_consensus(closed, actor.w, am, axis=2),
+            b=_masked_axis_consensus(closed, actor.b, am, axis=1))
+    else:
+        actor = tree_map(plain, actor)
+    if obs_mask is not None:
+        om = torch.as_tensor(obs_mask.astype(np.float32), device=dev)
+        w_obs = FCParams(
+            w=_masked_axis_consensus(closed, w_obs.w, om, axis=1),
+            b=plain(w_obs.b))
+    else:
+        w_obs = tree_map(plain, w_obs)
+    return params._replace(
+        w_obs=w_obs,
+        lstm=tree_map(plain, params.lstm),
+        actor=actor,
+        critic=tree_map(plain, params.critic),
+        w_fp=edge_blocks(params.w_fp),
+        w_msg=edge_blocks(params.w_msg),
+        w_dial=tree_map(plain, params.w_dial),
+        w_nobs=edge_blocks(params.w_nobs))

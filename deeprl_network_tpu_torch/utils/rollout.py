@@ -1,47 +1,54 @@
-"""Fused A2C actor-learner step (counterpart of
-``deeprl_network_tpu/utils/rollout.py``, fused-gradient path).
+"""A2C actor-learner step, evaluation and recording (counterpart of
+``deeprl_network_tpu/utils/rollout.py``).
 
     train_step(ts) -> (ts', metrics)
 
 runs T = n_step control steps of B batched env instances (policy forward,
 Gumbel-max action sampling, env dynamics with auto-reset, fingerprint
 update, episode bookkeeping), computes normalized, spatially discounted
-n-step returns from a bootstrap V(s_T), and differentiates the A2C loss
-through the rollout itself (truncated BPTT over the T-step window), then
-applies the TF1 RMSProp update to the f32 master params.
+n-step returns from a bootstrap V(s_T), takes the A2C gradient over the
+window (truncated BPTT), applies the TF1 RMSProp update to the f32 master
+params and, for IA2C_CU, the weight consensus.
 
-What the JAX step treats as recorded constants is detached here: obs,
-rewards, new fingerprints, the bootstrap value; the env runs outside
-autograd. With ``remat`` each step's policy forward runs under
-``torch.utils.checkpoint`` and is recomputed in the backward pass. The
-Gumbel noise is drawn outside that checkpoint, and the action is taken from
-the forward's logits, so the recompute never samples.
+Two gradient paths share one rollout step (``_env_policy_step``):
 
-Not ported yet (they raise ``NotImplementedError``): the replay update
-(``fused_grad=False``), IA2C_CU consensus, ``switch_penalty`` and
-``kickstart_coef`` shaping, ``eval_episode`` / ``record_episode`` and
-data-parallel ``axis_name``; see ROADMAP.md queue 1.
+- fused (``fused_grad=True``, the default): the loss is differentiated
+  through the rollout itself. What the replay treats as recorded constants
+  is detached: obs, rewards, new fingerprints, the bootstrap value; the env
+  runs outside autograd. With ``remat`` each step's policy forward runs
+  under ``torch.utils.checkpoint`` and is recomputed in the backward pass.
+  The Gumbel noise is drawn outside that checkpoint, and the action is
+  taken from the forward's logits, so the recompute never samples.
+- replay (``fused_grad=False``): a rollout without gradients records the
+  window, then ``models/a2c.a2c_loss`` runs the policy again over it from
+  the carry the window started with.
+
+``eval_episode`` and ``record_episode`` run one env instance (B = 1 through
+the same batched functions) with f32 params. Data-parallel ``axis_name``
+is not ported yet (ROADMAP.md queue 1 item 15) and raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple
+from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from deeprl_network_tpu_torch.config import ModelConfig, TrainConfig
+from deeprl_network_tpu_torch.envs.base import Env
 from deeprl_network_tpu_torch.envs.wrappers import AutoResetEnv
 from deeprl_network_tpu_torch.models.a2c import (
-    a2c_loss_terms, action_stats, normalize_rewards, nstep_returns,
-    spatial_mix,
+    Rollout, a2c_loss, a2c_loss_terms, action_stats, normalize_rewards,
+    nstep_returns, spatial_mix,
 )
 from deeprl_network_tpu_torch.models.layers import (
     RMSPropState, TF1RMSProp, global_norm, tf1_rmsprop,
 )
 from deeprl_network_tpu_torch.models.policies import (
-    AGENT_TO_COMM, Carry, PolicyParams, PolicySpec, check_ported,
+    AGENT_TO_COMM, Carry, PolicyParams, PolicySpec, consensus_update,
     init_carry, init_fingerprint, init_policy_params, mask_comm_params,
     policy_consts, policy_step_batched, tree_leaves, tree_map,
     tree_unflatten,
@@ -95,9 +102,20 @@ class A2CFns(NamedTuple):
     steps_per_update: int = 0  # global env steps one train_step consumes
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue 1 item {item})")
+
+
+class _LoopState(NamedTuple):
+    """What one rollout step hands to the next."""
+
+    env_state: Any
+    obs: torch.Tensor
+    fp: torch.Tensor
+    carry: Carry
+    prev_done: torch.Tensor
+    ep_ret: torch.Tensor
+    ep_len: torch.Tensor
+    last_ret: torch.Tensor
+    last_len: torch.Tensor
 
 
 def gumbel_noise(generator: torch.Generator, shape, device) -> torch.Tensor:
@@ -108,27 +126,52 @@ def gumbel_noise(generator: torch.Generator, shape, device) -> torch.Tensor:
     return -torch.log(-torch.log(torch.clamp(u, min=tiny)))
 
 
+def _default_horizon(env) -> int:
+    cfg = getattr(env, "cfg", None)
+    if cfg is not None:
+        if cfg.scenario.startswith("cacc"):
+            return int(cfg.episode_length)
+        return int(cfg.episode_steps_atsc)
+    return 600
+
+
 def make_a2c(env, mcfg: ModelConfig, tcfg: TrainConfig, agent: str = "ia2c",
              num_envs: Optional[int] = None, axis_name: Optional[str] = None,
              device="cuda") -> A2CFns:
-    """Build the fused A2C functions for one env + algorithm on ``device``
-    (the env must live on the same device)."""
+    """Build the A2C functions for one env + algorithm on ``device`` (the
+    env must live on the same device)."""
     dev = resolve_device(device)
     if env.device.type != dev.type:
         raise ValueError(f"env lives on {env.device}, make_a2c asked for "
                          f"{dev}")
     dev = env.device
-    if not mcfg.fused_grad:
-        raise _not_ported("the replay update (fused_grad=False)", 12)
-    if agent == "ia2c_cu":
-        raise _not_ported("IA2C_CU weight consensus", 9)
-    if mcfg.switch_penalty > 0 or mcfg.kickstart_coef > 0:
-        raise _not_ported("switch_penalty / kickstart_coef shaping", 9)
     if axis_name is not None:
-        raise _not_ported("data-parallel training (axis_name)", 15)
+        raise NotImplementedError(
+            "data-parallel training (axis_name) is not ported yet "
+            "(ROADMAP.md queue 1 item 15)")
+    cdt = torch.bfloat16 if mcfg.compute_dtype == "bfloat16" \
+        else torch.float32
+    if cdt != torch.float32 and not mcfg.fused_grad:
+        raise ValueError("compute_dtype=bfloat16 is supported on the "
+                         "default fused-gradient path only")
+    # training-only reward shaping / kickstarting (see ModelConfig); an env
+    # offers a hook by overriding the base class's method
+    use_shaping = mcfg.switch_penalty > 0
+    use_kick = mcfg.kickstart_coef > 0
+    if (use_shaping or use_kick) and not mcfg.fused_grad:
+        raise ValueError("switch_penalty / kickstart_coef are supported "
+                         "on the default fused-gradient path only")
+    if use_shaping and type(env).prev_action is Env.prev_action:
+        raise ValueError(f"switch_penalty needs {type(env).__name__}."
+                         "prev_action (ATSC envs only)")
+    if use_kick and type(env).controller_action is Env.controller_action:
+        raise ValueError(f"kickstart_coef needs {type(env).__name__}."
+                         "controller_action (implemented by the ATSC "
+                         "envs, hysteresis, and CACC, fixed-gain OVM)")
+    kick_horizon = max(mcfg.kickstart_ratio * tcfg.total_step, 1.0)
+    consensus = agent == "ia2c_cu"
     wenv = AutoResetEnv(env)
     spec = make_policy_spec(env.spec, mcfg, agent)
-    check_ported(spec)
     consts = policy_consts(spec, dev)
     n_env = num_envs or mcfg.num_envs
     T = mcfg.n_step
@@ -143,8 +186,6 @@ def make_a2c(env, mcfg: ModelConfig, tcfg: TrainConfig, agent: str = "ia2c",
         lambda count: lr_env_sched(count * steps_per_update),
         decay=mcfg.rmsp_alpha, eps=mcfg.rmsp_epsilon,
         max_grad_norm=mcfg.max_grad_norm)
-    cdt = torch.bfloat16 if mcfg.compute_dtype == "bfloat16" \
-        else torch.float32
     uniform_fp = init_fingerprint(spec, device=dev)
     n_agent, n_act = spec.n_agent, spec.n_a_max
 
@@ -158,8 +199,9 @@ def make_a2c(env, mcfg: ModelConfig, tcfg: TrainConfig, agent: str = "ia2c",
         return p
 
     def vpstep(params, carry, obs, fp, done):
-        # inputs and carry follow the PARAMS' dtype; logits/values go back
-        # to f32 for sampling and the loss
+        # inputs and carry follow the PARAMS' dtype (bf16 while training,
+        # f32 in eval and record); logits/values go back to f32 for
+        # sampling and the loss
         pdt = params.w_obs.w.dtype
         carry = Carry(carry.c.to(pdt), carry.h.to(pdt))
         carry2, logits, values = policy_step_batched(
@@ -189,11 +231,134 @@ def make_a2c(env, mcfg: ModelConfig, tcfg: TrainConfig, agent: str = "ia2c",
             step=0, ep_ret=zeros(), ep_len=zeros(), last_ep_ret=zeros(),
             last_ep_len=zeros())
 
+    def _env_policy_step(mparams, st: _LoopState, g: torch.Tensor,
+                         generator: torch.Generator):
+        """The ONE rollout step both gradient paths share: policy forward,
+        Gumbel-max sampling with the noise ``g``, env step + auto-reset,
+        fingerprint refresh, episode bookkeeping. With autograd on, the
+        logits, values and carry keep their graph (and, under ``remat``,
+        the forward is checkpointed); everything that comes out of the env
+        is a constant either way."""
+        if mcfg.remat and torch.is_grad_enabled():
+            carry, logits, values = checkpoint(
+                vpstep, mparams, st.carry, st.obs, st.fp, st.prev_done,
+                use_reentrant=False)
+        else:
+            carry, logits, values = vpstep(mparams, st.carry, st.obs, st.fp,
+                                           st.prev_done)
+        with torch.no_grad():
+            actions = torch.argmax(logits + g, dim=-1)
+            new_fp = torch.softmax(logits, dim=-1)
+            env_state, obs, reward, done, info = wenv.step(
+                st.env_state, actions, generator)
+            done_f = done.float()
+            # fingerprints reset to uniform on episode start
+            new_fp = torch.where(done_f[:, None, None] > 0, uniform_fp,
+                                 new_fp)
+            ep_ret = st.ep_ret + reward.sum(-1)
+            ep_len = st.ep_len + 1.0
+            last_ret = torch.where(done_f > 0, ep_ret, st.last_ret)
+            last_len = torch.where(done_f > 0, ep_len, st.last_len)
+            ep_ret = ep_ret * (1.0 - done_f)
+            ep_len = ep_len * (1.0 - done_f)
+            rec = {"obs": st.obs, "fp": st.fp, "prev_done": st.prev_done,
+                   "actions": actions, "logits": logits, "values": values,
+                   "reward": reward, "done_f": done_f, "info": info,
+                   "train_reward": reward}
+            # training-only signals from the PRE-step env state (the phase
+            # showing while a_t was chosen / the state the teacher scores).
+            # Episode bookkeeping and eval stay on the TRUE reward.
+            if use_shaping:
+                switched = (actions != env.prev_action(st.env_state)).float()
+                rec["train_reward"] = reward - mcfg.switch_penalty * switched
+            if use_kick:
+                teacher = env.controller_action(st.env_state)
+        if use_kick:
+            logp = torch.log_softmax(logits, dim=-1)
+            rec["teacher_ce"] = -torch.gather(
+                logp, -1, teacher[..., None])[..., 0]           # [B, N]
+        new_st = _LoopState(env_state, obs, new_fp, carry, done_f, ep_ret,
+                            ep_len, last_ret, last_len)
+        return new_st, rec
+
     def _returns_pipeline(rew_seq, done_seq, v_boot):
         """normalize -> spatial mix -> n-step returns ([T, B, N])."""
         r = normalize_rewards(rew_seq, mcfg.reward_norm, mcfg.reward_clip)
         r = spatial_mix(r, D)
         return nstep_returns(r, done_seq, v_boot, gamma)
+
+    def _rollout(mparams, ts: TrainState, gumbel, keys):
+        """T shared steps from ``ts``; the records named in ``keys`` (and
+        the info series) as lists over time."""
+        st = _LoopState(ts.env_state, ts.obs, ts.fp, ts.carry, ts.prev_done,
+                        ts.ep_ret, ts.ep_len, ts.last_ep_ret, ts.last_ep_len)
+        seqs: Dict[str, list] = {k: [] for k in keys}
+        infos: Dict[str, list] = {}
+        for t in range(T):
+            g = (gumbel[t].to(dev) if gumbel is not None else
+                 gumbel_noise(ts.generator, (n_env, n_agent, n_act), dev))
+            st, rec = _env_policy_step(mparams, st, g, ts.generator)
+            if torch.is_grad_enabled():     # the fused path's loss terms
+                rec["logp"], rec["ent"] = action_stats(rec["logits"],
+                                                       rec["actions"])
+            for k in keys:
+                seqs[k].append(rec[k])
+            for k, v in rec["info"].items():
+                infos.setdefault(k, []).append(v)
+        extra = {"env/" + k: torch.mean(torch.stack(v).float())
+                 for k, v in infos.items()}
+        return st, {k: torch.stack(v) for k, v in seqs.items()}, extra
+
+    def _fused_loss(ts, params, beta, kick_w, gumbel):
+        """Single-pass update: the loss is a function of the rollout itself,
+        and gradients flow through the LSTM carry chain exactly as in the
+        replay (same truncated-BPTT window)."""
+        mparams = _prep_params(params)
+        keys = ["logp", "ent", "values", "train_reward", "reward", "done_f"]
+        if use_kick:
+            keys.append("teacher_ce")
+        st, seq, extra = _rollout(mparams, ts, gumbel, keys)
+        with torch.no_grad():
+            _, _, v_boot = vpstep(mparams, st.carry, st.obs, st.fp,
+                                  st.prev_done)
+        returns = _returns_pipeline(seq["train_reward"], seq["done_f"],
+                                    v_boot)
+        advs = returns - seq["values"].detach()
+        loss, stats = a2c_loss_terms(seq["logp"], seq["ent"], seq["values"],
+                                     returns, advs, beta, mcfg.value_coef)
+        extra["step_reward"] = torch.mean(seq["reward"].sum(-1))
+        if use_kick:
+            # CE toward the hand controller: mean per agent-step; the loss
+            # term follows the sum-over-agents convention
+            ce = seq["teacher_ce"]
+            loss = loss + kick_w * torch.sum(torch.mean(ce, dim=(0, 1)))
+            extra["kick_ce"] = torch.mean(ce.detach())
+        return loss, stats, st, extra
+
+    def _replay_loss(ts, params, beta, gumbel):
+        """Two-pass update: a rollout without gradients, then the policy
+        run again over the recorded window for truncated BPTT."""
+        with torch.no_grad():
+            # mask per-edge comm blocks once per update, outside the loops
+            mparams = mask_comm_params(spec, ts.params, consts)
+            st, seq, extra = _rollout(
+                mparams, ts, gumbel,
+                ["obs", "fp", "prev_done", "actions", "reward", "values",
+                 "done_f"])
+            _, _, v_boot = vpstep(mparams, st.carry, st.obs, st.fp,
+                                  st.prev_done)
+            returns = _returns_pipeline(seq["reward"], seq["done_f"], v_boot)
+            advs = returns - seq["values"]
+        roll = Rollout(obs=seq["obs"], fps=seq["fp"],
+                       prev_dones=seq["prev_done"], actions=seq["actions"],
+                       rewards=seq["reward"], values=seq["values"],
+                       dones=seq["done_f"])
+        loss, stats = a2c_loss(
+            spec, mask_comm_params(spec, params, consts), ts.carry, roll,
+            returns, advs, beta, mcfg.value_coef, remat=mcfg.remat,
+            consts=consts)
+        extra["step_reward"] = torch.mean(seq["reward"].sum(-1))
+        return loss, stats, st, extra
 
     def train_step(ts: TrainState, gumbel: Optional[torch.Tensor] = None
                    ) -> Tuple[TrainState, Dict[str, Any]]:
@@ -203,95 +368,155 @@ def make_a2c(env, mcfg: ModelConfig, tcfg: TrainConfig, agent: str = "ia2c",
         leaves = [p.detach().requires_grad_(True)
                   for p in tree_leaves(ts.params)]
         params = tree_unflatten(ts.params, leaves)
-        mparams = _prep_params(params)
-
-        env_state, obs, fp, carry = ts.env_state, ts.obs, ts.fp, ts.carry
-        prev_done = ts.prev_done
-        ep_ret, ep_len = ts.ep_ret, ts.ep_len
-        last_ret, last_len = ts.last_ep_ret, ts.last_ep_len
-        logps, ents, vals, rews, dones = [], [], [], [], []
-        infos: Dict[str, list] = {}
-        for t in range(T):
-            g = (gumbel[t].to(dev) if gumbel is not None else
-                 gumbel_noise(ts.generator, (n_env, n_agent, n_act), dev))
-            if mcfg.remat:
-                carry, logits, values = checkpoint(
-                    vpstep, mparams, carry, obs, fp, prev_done,
-                    use_reentrant=False)
-            else:
-                carry, logits, values = vpstep(mparams, carry, obs, fp,
-                                               prev_done)
-            with torch.no_grad():
-                actions = torch.argmax(logits + g, dim=-1)
-                new_fp = torch.softmax(logits, dim=-1)
-                env_state, obs, reward, done, info = wenv.step(
-                    env_state, actions, ts.generator)
-            logp_a, entropy = action_stats(logits, actions)
-            done_f = done.float()
-            # fingerprints reset to uniform on episode start
-            new_fp = torch.where(done_f[:, None, None] > 0, uniform_fp,
-                                 new_fp)
-            ep_ret = ep_ret + reward.sum(-1)
-            ep_len = ep_len + 1.0
-            last_ret = torch.where(done_f > 0, ep_ret, last_ret)
-            last_len = torch.where(done_f > 0, ep_len, last_len)
-            ep_ret = ep_ret * (1.0 - done_f)
-            ep_len = ep_len * (1.0 - done_f)
-            fp, prev_done = new_fp, done_f
-            logps.append(logp_a)
-            ents.append(entropy)
-            vals.append(values)
-            rews.append(reward)
-            dones.append(done_f)
-            for k, v in info.items():
-                infos.setdefault(k, []).append(v)
-
-        val_seq = torch.stack(vals)
-        rew_seq, done_seq = torch.stack(rews), torch.stack(dones)
-        with torch.no_grad():
-            _, _, v_boot = vpstep(mparams, carry, obs, fp, prev_done)
-        returns = _returns_pipeline(rew_seq, done_seq, v_boot)
-        advs = returns - val_seq.detach()
-        loss, stats = a2c_loss_terms(torch.stack(logps), torch.stack(ents),
-                                     val_seq, returns, advs, beta,
-                                     mcfg.value_coef)
+        if mcfg.fused_grad:
+            # kickstart weight anneals linearly to 0 at
+            # kickstart_ratio * total_step
+            kick_w = mcfg.kickstart_coef * min(max(
+                1.0 - ts.step / kick_horizon, 0.0), 1.0)
+            loss, stats, st, extra = _fused_loss(ts, params, beta, kick_w,
+                                                 gumbel)
+        else:
+            loss, stats, st, extra = _replay_loss(ts, params, beta, gumbel)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, grads)]
         grad_norm = global_norm(grads)
         updates, opt_state = optimizer.update(grads, ts.opt_state)
-        new_leaves = [(p.detach() + u).to(p.dtype)
-                      for p, u in zip(leaves, updates)]
+        new_params = tree_unflatten(
+            ts.params, [(p.detach() + u).to(p.dtype)
+                        for p, u in zip(leaves, updates)])
+        if consensus:
+            if mcfg.consensus_masked:
+                new_params = consensus_update(
+                    new_params, env.spec.neighbor_mask, env.spec.action_mask,
+                    env.spec.obs_mask)
+            else:
+                new_params = consensus_update(new_params,
+                                              env.spec.neighbor_mask)
 
         new_ts = TrainState(
-            params=tree_unflatten(ts.params, new_leaves),
-            opt_state=opt_state, env_state=env_state, obs=obs, fp=fp,
+            params=new_params, opt_state=opt_state, env_state=st.env_state,
+            obs=st.obs, fp=st.fp,
             # truncated BPTT: the next window starts from a constant carry
-            carry=Carry(carry.c.detach(), carry.h.detach()),
-            prev_done=prev_done, generator=ts.generator,
-            step=ts.step + steps_per_update, ep_ret=ep_ret, ep_len=ep_len,
-            last_ep_ret=last_ret, last_ep_len=last_len)
+            carry=Carry(st.carry.c.detach(), st.carry.h.detach()),
+            prev_done=st.prev_done, generator=ts.generator,
+            step=ts.step + steps_per_update, ep_ret=st.ep_ret,
+            ep_len=st.ep_len, last_ep_ret=st.last_ret,
+            last_ep_len=st.last_len)
         metrics = {
             "loss": loss.detach(),
             "policy_loss": stats.policy.detach(),
             "value_loss": stats.value.detach(),
             "entropy": stats.entropy.detach(),
             "grad_norm": grad_norm,
-            "episode_return": torch.mean(last_ret),
-            "episode_len": torch.mean(last_len),
+            "episode_return": torch.mean(st.last_ret),
+            "episode_len": torch.mean(st.last_len),
             "lr": lr_env_sched(ts.step),
             "beta": beta,
-            "step_reward": torch.mean(rew_seq.sum(-1)),
+            **extra,
         }
-        for k, v in infos.items():
-            metrics["env/" + k] = torch.mean(torch.stack(v).float())
         return new_ts, metrics
 
-    def eval_episode(*args, **kwargs):
-        raise _not_ported("eval_episode", 12)
+    def _episode_start(params, seed_or_generator):
+        """(masked f32 params, generator, env state, obs, carry, fp) of one
+        env instance at the start of an episode."""
+        if params is not None:
+            params = mask_comm_params(
+                spec, tree_map(lambda t: t.detach(), params), consts)
+        gen = seed_or_generator
+        if not isinstance(gen, torch.Generator):
+            gen = torch.Generator(device=dev).manual_seed(int(gen))
+        state, obs = env.reset(1, gen)
+        return (params, gen, state, obs,
+                init_carry(spec, 1, torch.float32, dev), uniform_fp[None])
 
-    def record_episode(*args, **kwargs):
-        raise _not_ported("record_episode", 12)
+    def _act(logits, greedy, gumbel_t, gen):
+        if greedy:
+            return torch.argmax(logits, dim=-1)
+        g = (gumbel_t.to(dev) if gumbel_t is not None else
+             gumbel_noise(gen, (1, n_agent, n_act), dev))
+        return torch.argmax(logits + g, dim=-1)
+
+    @torch.no_grad()
+    def eval_episode(params: PolicyParams,
+                     seed_or_generator: Union[int, torch.Generator],
+                     max_steps: Optional[int] = None, greedy: bool = False,
+                     gumbel: Optional[torch.Tensor] = None
+                     ) -> Dict[str, torch.Tensor]:
+        """One evaluation episode on a single env instance. Default is
+        SAMPLED actions, the reference's evaluation protocol (argmax is much
+        worse for these stochastic-mixing controllers); ``gumbel``
+        [horizon, N, A] replaces the sampling noise. The loop runs the whole
+        horizon and weighs every step by ``alive``, so the per-step metrics
+        average over EXECUTED steps only."""
+        horizon = max_steps or _default_horizon(env)
+        params, gen, state, obs, carry, fp = _episode_start(
+            params, seed_or_generator)
+        no_done = torch.zeros((1,), device=dev)
+        ep_ret = torch.zeros((), device=dev)
+        alive = torch.ones((), device=dev)
+        seq: Dict[str, list] = {"alive": []}
+        for t in range(horizon):
+            carry, logits, _ = vpstep(params, carry, obs, fp, no_done)
+            action = _act(logits, greedy,
+                          None if gumbel is None else gumbel[t][None], gen)
+            fp = torch.softmax(logits, dim=-1)
+            state, obs, reward, done, info = env.step(state, action)
+            ep_ret = ep_ret + reward.sum() * alive
+            seq["alive"].append(alive)
+            for k, v in info.items():
+                seq.setdefault(k, []).append(v[0] * alive)
+            alive = alive * (1.0 - done[0].float())
+        n_alive = torch.stack(seq.pop("alive")).sum()
+        ep_len = torch.clamp(n_alive, min=1.0)
+        out = {"episode_return": ep_ret, "episode_len": n_alive,
+               "avg_step_reward": ep_ret / ep_len}
+        for k, v in seq.items():
+            # per-step mean over any agent axes, then weighted by executed
+            # steps only
+            per_step = torch.stack(v).float().reshape(horizon, -1).mean(-1)
+            out["env/" + k] = per_step.sum() / ep_len
+        return out
+
+    @torch.no_grad()
+    def record_episode(params: Optional[PolicyParams],
+                       seed_or_generator: Union[int, torch.Generator],
+                       max_steps: Optional[int] = None,
+                       policy: str = "greedy",
+                       gumbel: Optional[torch.Tensor] = None
+                       ) -> Dict[str, torch.Tensor]:
+        """One episode with full per-step measurement series, each
+        [horizon, ...]. policy: 'greedy' (argmax), 'sample', or
+        'controller' (the env's strongest built-in hand controller,
+        ``env.controller_action``, falling back to ``greedy_action``;
+        needs no params and leaves the fingerprints unchanged)."""
+        if policy not in ("greedy", "sample", "controller"):
+            raise ValueError(f"unknown record policy {policy!r}")
+        horizon = max_steps or _default_horizon(env)
+        params, gen, state, obs, carry, fp = _episode_start(
+            params, seed_or_generator)
+        no_done = torch.zeros((1,), device=dev)
+        alive = torch.ones((), device=dev)
+        seq: Dict[str, list] = {}
+        for t in range(horizon):
+            if policy == "controller":
+                action = env.controller_action(state)
+                if action is None:
+                    action = env.greedy_action(state)
+            else:
+                carry, logits, _ = vpstep(params, carry, obs, fp, no_done)
+                action = _act(logits, policy == "greedy",
+                              None if gumbel is None else gumbel[t][None],
+                              gen)
+                fp = torch.softmax(logits, dim=-1)
+            state, obs, reward, done, info = env.step(state, action)
+            step_out = {"action": action, "reward": reward,
+                        **env.record(state), **info}
+            seq.setdefault("alive", []).append(alive)
+            for k, v in step_out.items():
+                seq.setdefault(k, []).append(v[0])
+            alive = alive * (1.0 - done[0].float())
+        return {k: torch.stack(v) for k, v in seq.items()}
 
     return A2CFns(init_state=init_state, train_step=train_step,
                   eval_episode=eval_episode, record_episode=record_episode,

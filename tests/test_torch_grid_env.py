@@ -106,3 +106,79 @@ def test_reset_draws_queues_when_init_density_positive():
     s2, _ = env.reset(2, torch.Generator().manual_seed(0))
     assert torch.equal(s1.queue, s2.queue)
     assert 0 < float(s1.queue.max()) <= 0.5 * 40.0
+
+
+@pytest.mark.parametrize("on,delta", [("wave", 0.0), ("queue", 0.0),
+                                      ("queue", 3.0), ("wave", 1.5)])
+def test_greedy_and_controller_actions_match_jax(on, delta):
+    """``greedy_action`` on every state of a 25-step random-action run (the
+    reset state, all queues empty, is a five-way tie: both take phase 0),
+    and ``controller_action`` with the config's hysteresis."""
+    env_kw = dict(scenario="large_grid", coop_gamma=0.9, peak_flow1=3000.0,
+                  peak_flow2=2500.0, hysteresis_on=on,
+                  hysteresis_delta=delta)
+    jenv = jgrid.LargeGridEnv(JEnvConfig(**env_kw))
+    tenv = grid.LargeGridEnv(EnvConfig(**env_kw), device="cpu")
+    B, steps = 3, 25
+    acts = np.random.default_rng(3).integers(0, 5, (steps, B, 25))
+    jstate, _ = jax.vmap(jenv.reset)(jax.random.split(jax.random.key(0), B))
+    tstate, _ = tenv.reset(B)
+    jgreedy = jax.jit(jax.vmap(lambda s: jenv.greedy_action(s, on, delta)))
+    jctrl = jax.jit(jax.vmap(jenv.controller_action))
+    jstep = jax.jit(jax.vmap(jenv.step))
+    tie = tenv.greedy_action(tstate, on, delta)
+    assert tie.dtype == torch.int64 and not tie.any()
+    n_switch = 0
+    for t in range(steps + 1):
+        ja = np.asarray(jgreedy(jstate))
+        ta = tenv.greedy_action(tstate, on, delta).numpy()
+        assert np.array_equal(ta, ja), f"step {t}"
+        assert np.array_equal(tenv.controller_action(tstate).numpy(),
+                              np.asarray(jctrl(jstate))), f"step {t}"
+        n_switch += int((ta != tstate.prev_phase.numpy()).sum())
+        if t < steps:
+            jstate = jstep(jstate, acts[t].astype(np.int32))[0]
+            tstate = tenv.step(tstate, torch.tensor(acts[t]))[0]
+    assert n_switch > 0
+
+
+def test_greedy_action_masks_invalid_phases_and_breaks_ties_first():
+    """Padded phases score -inf before the argmax, and equal scores go to
+    the first phase, as ``jnp.argmax`` does."""
+    tcfg = EnvConfig(scenario="large_grid")
+    topo = grid.build_grid_topology(tcfg, 5)
+    topo.phase_valid[:, 0] = 0.0          # phase 0 is now padding
+    tenv = TrafficNetworkEnv(tcfg, topo, device="cpu")
+    state, _ = tenv.reset(1)
+    # empty network: every valid phase serves 0, the first VALID one wins
+    assert torch.all(tenv.greedy_action(state) == 1)
+    q = state.queue.clone()
+    lanes = topo.node_lanes[7]
+    q[0, lanes[1]] = 4.0                  # N through: served by phase 0 only
+    q[0, lanes[3]] = 4.0                  # E left: phase 3
+    q[0, lanes[9]] = 4.0                  # W left: phase 3 as well
+    q[0, lanes[0]] = 8.0                  # N left: phase 1, equal to phase 3
+    a = tenv.greedy_action(state._replace(queue=q), on="queue")
+    assert int(a[0, 7]) == 1
+
+
+def test_record_matches_jax():
+    env_kw = dict(scenario="large_grid", coop_gamma=0.9,
+                  episode_length_sec=100)
+    jenv = jgrid.LargeGridEnv(JEnvConfig(**env_kw))
+    tenv = grid.LargeGridEnv(EnvConfig(**env_kw), device="cpu")
+    B = 2
+    acts = np.random.default_rng(4).integers(0, 5, (12, B, 25))
+    jstate, _ = jax.vmap(jenv.reset)(jax.random.split(jax.random.key(0), B))
+    tstate, _ = tenv.reset(B)
+    jstep = jax.jit(jax.vmap(jenv.step))
+    for t in range(12):
+        jstate = jstep(jstate, acts[t].astype(np.int32))[0]
+        tstate = tenv.step(tstate, torch.tensor(acts[t]))[0]
+        jrec, trec = jax.vmap(jenv.record)(jstate), tenv.record(tstate)
+        assert trec.keys() == jrec.keys()
+        for k in jrec:
+            assert trec[k].shape == jrec[k].shape, k
+            np.testing.assert_allclose(trec[k].numpy(), np.asarray(jrec[k]),
+                                       rtol=1e-5, atol=1e-5, err_msg=k)
+    assert float(trec["total_queue"].sum()) > 0

@@ -53,6 +53,7 @@ def test_importing_the_port_loads_no_jax():
         "import deeprl_network_tpu_torch.utils.rollout\n"
         "import deeprl_network_tpu_torch.utils.convert\n"
         "import deeprl_network_tpu_torch.envs.grid\n"
+        "import deeprl_network_tpu_torch.envs.cacc\n"
         "import deeprl_network_tpu_torch.config\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{BANNED!r}]\n"

@@ -141,11 +141,3 @@ def test_neurcomm_gradient_flows_through_neighbors():
             else:
                 assert torch.all(g[0, 1] == 0)
             assert torch.all(g[0, 2] == 0)
-
-
-@pytest.mark.parametrize("comm", [tp.CommType.FP, tp.CommType.COMMNET,
-                                  tp.CommType.DIAL])
-def test_unported_comm_types_raise(comm):
-    _, spec = _specs(comm, _line(3), False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tp.init_policy_params(torch.Generator().manual_seed(0), spec)
