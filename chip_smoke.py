@@ -11,10 +11,11 @@ Phases (any failure raises, exits non-zero and prints no result line):
      with nvcc (one process per source, all started together);
   3. kernels: hold each kernel against its plain PyTorch twin on the card at
      the main path's shape (B=768, N=25, F=H=64) in f32 and bf16, at the
-     CACC platoon's shape (B=32, N=8), at B=1 (eval and record), at ragged
+     CACC platoon's shape (B=32, N=8), at B=1 (eval and record), at the
+     Monaco shapes (N=28: B=32 and B=1 in f32, B=768 in bf16), at ragged
      shapes and at a width that takes the general kernel, forward and
-     backward; time them at the main path's, the platoon's and the B=1
-     shape from replays of a CUDA graph of 20 launches (``ms``: inputs warm
+     backward; time them at the main path's, the platoon's, the B=1 and the
+     Monaco shapes from replays of a CUDA graph of 20 launches (``ms``: inputs warm
      in L2; ``cold_ms``: L2 flushed before every launch; ``call_ms``: the
      host's time per call), the earlier general kernel in bf16 beside the
      tensor-core one;
@@ -37,7 +38,24 @@ Phases (any failure raises, exits non-zero and prints no result line):
      (greedy, controller) on the grid and on the platoon with the params
      trained above, on the card against the same calls on the CPU with the
      same noise, and one whole sampled episode each on the card;
- 10. (--profile) device busy share and kernel time by name over one
+ 10. monaco: Monaco-28 MA2C_NC from ``configs/config_ma2c_nc_net.ini``: two
+     small f32 updates on the card against the CPU port; the file's own step
+     (N=28, B=32, T=120, 64/64, f32: a warm-up and 3 timed steps, launch
+     counts asserted, every sampled action inside its node's action count);
+     the same env at the flagship's settings (B=768, bf16, sparse_comm,
+     remat: a warm-up and 2 timed steps);
+ 11. cli: in a temporary directory, the port's CLI on a copy of that file
+     with ``total_step`` cut to 5 updates: ``train`` with ``in_train_test``
+     (log rows, a test row, the config snapshot, checkpoints), ``train
+     --restore`` with a doubled budget, ``evaluate`` from the checkpoint and
+     ``evaluate --naive``, launch counts asserted around each; then a
+     ``Trainer`` run with the time inside and outside ``train_step`` read
+     apart, the restored params held bit-equal to the trainer's final ones,
+     and the checkpoint's size, save and restore times;
+ 12. agents: the reference-style host loop with the compat ``MA2C_NC`` class
+     on the platoon for two ``n_step = 10`` batches, launch counts asserted
+     per call;
+ 13. (--profile) device busy share and kernel time by name over one
      flagship step, and the number of kernels in one step of each family.
 
 Output: a kernels JSON line and the card's name and power limit on lines
@@ -48,10 +66,13 @@ before the last; the last line is
 from __future__ import annotations
 
 import argparse
+import configparser
+import csv
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
@@ -60,7 +81,13 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 FLAGSHIP = dict(B=768, N=25, F=64, H=64)
 CACC = dict(B=32, N=8, F=64, H=64)          # the platoon configs' own size
 EVAL_B1 = dict(B=1, N=25, F=64, H=64)       # eval and record on the grid
-TIMED_SHAPES = ("flagship", "cacc", "eval_b1")
+# Monaco-28: the .ini's own train step, eval/record, the flagship settings
+MONACO = dict(B=32, N=28, F=64, H=64)
+MONACO_B1 = dict(B=1, N=28, F=64, H=64)
+MONACO_768 = dict(B=768, N=28, F=64, H=64)
+TIMED_SHAPES = ("flagship", "cacc", "eval_b1", "monaco", "monaco_b1",
+                "monaco_768")
+MONACO_INI = "configs/config_ma2c_nc_net.ini"
 AGENTS = ("ia2c", "ia2c_fp", "ia2c_cu", "ma2c_nc", "ma2c_cnet", "ma2c_dial")
 CACC_CONFIGS = ("configs/config_ma2c_nc_cacc_catchup.ini",
                 "configs/config_ia2c_cu_cacc_slowdown.ini")
@@ -245,6 +272,9 @@ def check_kernels():
              ("cacc", CACC, "bfloat16", None),
              ("eval_b1", EVAL_B1, "float32", None),
              ("eval_b1", EVAL_B1, "bfloat16", None),
+             ("monaco", MONACO, "float32", None),
+             ("monaco_b1", MONACO_B1, "float32", None),
+             ("monaco_768", MONACO_768, "bfloat16", None),
              ("ragged", RAGGED, "float32", None),
              ("ragged", RAGGED, "bfloat16", None),
              ("ragged_wide", RAGGED_WIDE, "bfloat16", None),
@@ -366,20 +396,25 @@ def make_flagship(device, env_kw=None, agent="ma2c_nc", **overrides):
                     device=device)
 
 
-def make_cacc(path, device, env_kw=None, **overrides):
-    """The CACC platoon of a ``configs/*.ini`` file through the port's
-    ``load_config`` and ``make_a2c``; ``env_kw`` / ``overrides`` replace
-    EnvConfig / ModelConfig fields."""
+def make_from_ini(path, device, env_kw=None, **overrides):
+    """(env, A2C functions) of a ``configs/*.ini`` file through the port's
+    ``load_config`` and the CLI's ``init_env`` / ``init_agent``; ``env_kw`` /
+    ``overrides`` replace EnvConfig / ModelConfig fields."""
     import dataclasses
     from deeprl_network_tpu_torch.config import load_config
-    from deeprl_network_tpu_torch.envs.cacc import CACCEnv
-    from deeprl_network_tpu_torch.utils.rollout import make_a2c
+    from deeprl_network_tpu_torch.main import init_agent, init_env
     root = os.path.dirname(os.path.abspath(__file__))
     cfg = load_config(os.path.join(root, path))
-    env = CACCEnv(dataclasses.replace(cfg.env, **(env_kw or {})),
-                  device=device)
-    return make_a2c(env, dataclasses.replace(cfg.model, **overrides),
-                    cfg.train, agent=cfg.agent, device=device)
+    cfg = dataclasses.replace(
+        cfg, env=dataclasses.replace(cfg.env, **(env_kw or {})),
+        model=dataclasses.replace(cfg.model, **overrides))
+    env = init_env(cfg, device=device)
+    return env, init_agent(env, cfg, device=device)
+
+
+def make_cacc(path, device, env_kw=None, **overrides):
+    """The CACC platoon of a ``configs/*.ini`` file."""
+    return make_from_ini(path, device, env_kw, **overrides)[1]
 
 
 def zero_counts():
@@ -711,6 +746,309 @@ def check_eval_record(what, gpu_fns, cpu_fns, params, horizon, episode,
         f"({wall / n * 1e3:.3f} ms a step) on {card}")
 
 
+def run_monaco(card: str):
+    """Monaco-28 MA2C_NC: a small step against the CPU port, the ``.ini``
+    file's own step and the same env at the flagship's settings. Returns the
+    launch counts of the two full-width runs."""
+    import torch
+    T = 120
+    check_reference(
+        "monaco reference",
+        lambda device: make_from_ini(
+            MONACO_INI, device, env_kw=dict(episode_length_sec=60),
+            **SMALL)[1], 6)
+    out = {}
+    runs = (("monaco ini", {}, 3, T + 1, "general"),
+            ("monaco b768", dict(num_envs=768, compute_dtype="bfloat16",
+                                 sparse_comm=True, remat=True), 2, 2 * T + 1,
+             "tc"))
+    for what, overrides, n_timed, fwd, variant in runs:
+        env, fns = make_from_ini(MONACO_INI, "cuda", **overrides)
+        B = overrides.get("num_envs", 32)
+        spec, topo = fns.spec, env.topo
+        if (spec.n_agent, spec.n_fc, spec.n_lstm, spec.n_a_max,
+                topo.n_lane, env.max_delay, env.episode_steps,
+                fns.steps_per_update) != (28, 64, 64, 6, 148, 18, 720, T * B):
+            raise AssertionError(f"{what}: not the size the file states")
+        # every sampled action must lie inside its node's action count
+        n_a = torch.as_tensor(env.spec.n_a_ls, device="cuda")
+        bad = [torch.zeros((), dtype=torch.bool, device="cuda")]
+        step = env.step
+
+        def checked_step(state, action):
+            bad[0] = bad[0] | (action >= n_a).any() | (action < 0).any()
+            return step(state, action)
+        env.step = checked_step
+        ts, m, launches, step_times = timed_steps(
+            what, fns, fns.init_state(0), n_timed, fwd, T, variant)
+        if bool(bad[0]):
+            raise AssertionError(f"{what}: a padded phase was sampled")
+        out[what] = launches
+        log(what + " " + json.dumps({
+            "config": MONACO_INI, "overrides": overrides,
+            "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+            "env_steps_per_s": n_timed * T * B / sum(step_times),
+            "step_s": [round(t, 4) for t in step_times],
+            "launches_per_step": {
+                k: v // (n_timed + 1) for k, v in launches.items() if v},
+            "card": card}))
+        del env, fns, ts
+        torch.cuda.empty_cache()
+    return out
+
+
+def csv_rows(path):
+    with open(path) as f:
+        return list(csv.DictReader(f))
+
+
+def require_files(what, directory, names):
+    missing = [n for n in names
+               if not os.path.getsize(os.path.join(directory, n)) > 0]
+    if missing:
+        raise AssertionError(f"{what}: missing or empty {missing}")
+
+
+def run_cli(card: str):
+    """The port's CLI on Monaco-28 MA2C_NC, ``total_step`` cut to 5 updates:
+    train with in-train tests, train --restore, evaluate, evaluate --naive;
+    then the Trainer's own cost and the checkpoint's."""
+    import torch
+    from deeprl_network_tpu_torch.config import load_config
+    from deeprl_network_tpu_torch.main import (
+        init_agent, init_env, main as cli,
+    )
+    from deeprl_network_tpu_torch.models.policies import tree_leaves
+    from deeprl_network_tpu_torch.utils.trainer import Trainer
+    root = os.path.dirname(os.path.abspath(__file__))
+    T, B, n_upd, horizon = 120, 32, 5, 720
+    spu = T * B
+    cp = configparser.ConfigParser()
+    cp.read(os.path.join(root, MONACO_INI))
+    n_test_seeds = len(cp["ENV_CONFIG"]["test_seeds"].split(","))
+
+    def write_ini(directory, total):
+        # log rows at 2 and 4 updates, one test at 4 updates
+        cp["TRAIN_CONFIG"].update(
+            total_step=str(total), log_interval=str(2 * spu),
+            test_interval=str(4 * spu))
+        os.makedirs(directory)
+        path = os.path.join(directory, os.path.basename(MONACO_INI))
+        with open(path, "w") as f:
+            cp.write(f)
+        return path
+
+    def timed_cli(what, argv, fwd, bwd):
+        zero_counts()
+        t0 = time.perf_counter()
+        cli(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        expect_counts(what, fwd, bwd, "general")
+        return wall
+
+    with tempfile.TemporaryDirectory() as d:
+        base = os.path.join(d, "run")
+        data, eva = os.path.join(base, "data"), os.path.join(base, "eva_data")
+        ini = write_ini(os.path.join(d, "first"), n_upd * spu)
+        wall = timed_cli(
+            "cli train",
+            ["--base-dir", base, "train", "--config-dir", ini,
+             "--test-mode", "in_train_test"],
+            n_upd * (T + 1) + n_test_seeds * horizon, n_upd * T)
+        require_files("cli train", data, [
+            "train_log.csv", "train_log.jsonl", "test_log.csv",
+            os.path.basename(MONACO_INI)])
+        rows = csv_rows(os.path.join(data, "train_log.csv"))
+        steps = [float(r["step"]) for r in rows]
+        tests = csv_rows(os.path.join(data, "test_log.csv"))
+        if steps != [2.0 * spu, 4.0 * spu] or len(tests) != 1 \
+                or float(tests[0]["step"]) != 4.0 * spu:
+            raise AssertionError(f"cli train: log rows at {steps}, "
+                                 f"{len(tests)} test rows")
+        if sorted(os.listdir(os.path.join(base, "model"))) != sorted(
+                f"checkpoint_{k * spu}.pt" for k in (2, 4, 5)):
+            raise AssertionError("cli train: checkpoints "
+                                 f"{os.listdir(os.path.join(base, 'model'))}")
+        for r in rows + tests:
+            if not all(torch.isfinite(torch.tensor(float(v)))
+                       for v in r.values()):
+                raise AssertionError(f"cli train: non-finite log row {r}")
+        log(f"cli train: {n_upd} updates with one test of {n_test_seeds} "
+            f"episodes in {wall:.2f} s; logged env-steps/s "
+            f"{[float(r['env_steps_per_s']) for r in rows]}; test "
+            f"episode_return {float(tests[0]['episode_return']):.2f} on {card}")
+
+        bigger = write_ini(os.path.join(d, "second"), 2 * n_upd * spu)
+        wall = timed_cli(
+            "cli train --restore",
+            ["--base-dir", base, "train", "--config-dir", bigger,
+             "--restore"], n_upd * (T + 1), n_upd * T)
+        after = [float(r["step"])
+                 for r in csv_rows(os.path.join(data, "train_log.csv"))]
+        new = after[len(steps):]
+        if not new or min(new) <= n_upd * spu or max(new) != 2 * n_upd * spu:
+            raise AssertionError(f"cli train --restore: rows {after}: not "
+                                 "resumed past the checkpointed step")
+        log(f"cli train --restore: resumed at step {n_upd * spu}, new log "
+            f"rows at {new}, {wall:.2f} s on {card}")
+
+        wall = timed_cli(
+            "cli evaluate",
+            ["--base-dir", base, "evaluate", "--evaluation-seeds", "2000"],
+            horizon, 0)
+        require_files("cli evaluate", eva, [
+            "eval_log.csv", "episode_seed2000.csv",
+            "real_net_ma2c_nc_traffic.csv", "real_net_ma2c_nc_control.csv",
+            "real_net_ma2c_nc_trip.csv"])
+        row = csv_rows(os.path.join(eva, "eval_log.csv"))[0]
+        n_ctrl = len(csv_rows(os.path.join(
+            eva, "real_net_ma2c_nc_control.csv")))
+        if float(row["episode_len"]) != horizon or n_ctrl != horizon * 28 \
+                or not abs(float(row["episode_return"])) < float("inf"):
+            raise AssertionError(f"cli evaluate: {row}, {n_ctrl} control "
+                                 "rows")
+        log(f"cli evaluate: one sampled episode of {horizon} steps from the "
+            f"checkpoint, return {float(row['episode_return']):.2f}, "
+            f"{wall:.2f} s with its csv files on {card}")
+
+        wall = timed_cli(
+            "cli evaluate --naive",
+            ["--base-dir", base, "evaluate", "--naive"], 0, 0)
+        require_files("cli evaluate --naive", eva, [
+            f"real_net_greedy_{k}.csv" for k in ("traffic", "control",
+                                                 "trip")])
+        naive = csv_rows(os.path.join(eva, "eval_log.csv"))[1:]
+        log(f"cli evaluate --naive: {len(naive)} controller episodes, "
+            f"returns {[round(float(r['episode_return']), 2) for r in naive]}"
+            f", {wall:.2f} s on {card}")
+
+        # the Trainer's own cost: the same 5 updates with the time inside
+        # init_state (once a run), train_step (synchronised) and checkpoint
+        # saves read apart
+        cfg = load_config(ini)
+        env = init_env(cfg)
+        fns = init_agent(env, cfg)
+        spent = {"init_state": 0.0, "train_step": 0.0, "save": 0.0}
+
+        def timed(name, fn):
+            def wrapper(*args):
+                t0 = time.perf_counter()
+                out = fn(*args)
+                torch.cuda.synchronize()
+                spent[name] += time.perf_counter() - t0
+                return out
+            return wrapper
+        trainer = Trainer(fns._replace(
+            init_state=timed("init_state", fns.init_state),
+            train_step=timed("train_step", fns.train_step)), cfg,
+            os.path.join(d, "run2"), seed=cfg.env.seed, in_train_test=False)
+        trainer.ckpt.save = timed("save", trainer.ckpt.save)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts = trainer.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        outside = wall - sum(spent.values())
+        log("trainer " + json.dumps({
+            "updates": n_upd, "wall_s": wall,
+            "init_state_s": spent["init_state"],
+            "train_step_s": spent["train_step"],
+            "checkpoint_save_s": spent["save"], "outside_s": outside,
+            "outside_per_update_ms": outside / n_upd * 1e3,
+            "outside_share": outside / (wall - spent["init_state"]),
+            "card": card}))
+
+        ckpt = trainer.ckpt
+        path = os.path.join(ckpt.path, f"checkpoint_{ts.step}.pt")
+        t0 = time.perf_counter()
+        ckpt.save(ts.step, ts)          # the wrapper synchronises
+        save_s = time.perf_counter() - t0
+        like = fns.init_state(1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        back = ckpt.restore(like)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        params = ckpt.restore_params(like.params)
+        torch.cuda.synchronize()
+        restore_params_s = time.perf_counter() - t0
+        same = lambda xs, ys: all(
+            a.device == b.device and a.dtype == b.dtype
+            and torch.equal(a, b) for a, b in zip(xs, ys))
+        if not (same(tree_leaves(params), tree_leaves(ts.params))
+                and same(tree_leaves(back.params), tree_leaves(ts.params))
+                and same(back.opt_state.ms, ts.opt_state.ms)
+                and same(list(back.env_state) + [back.obs, back.carry.h],
+                         list(ts.env_state) + [ts.obs, ts.carry.h])
+                and torch.equal(back.generator.get_state(),
+                                ts.generator.get_state())
+                and back.step == ts.step == n_upd * spu):
+            raise AssertionError("checkpoint: the restored state differs "
+                                 "from the trainer's final state")
+        log("checkpoint " + json.dumps({
+            "bytes": os.path.getsize(path), "save_s": save_s,
+            "restore_s": restore_s, "restore_params_s": restore_params_s,
+            "restored_equals_final_state": True, "card": card}))
+
+
+def run_agents(card: str):
+    """The reference-style host loop (``tests/test_agents_compat.py``) with
+    the compat ``MA2C_NC`` class on the platoon, on the card: one forward
+    launch per ``forward``, ``n_step`` + ``n_step`` per ``backward``."""
+    import numpy as np
+    import torch
+    from deeprl_network_tpu_torch.config import EnvConfig, ModelConfig
+    from deeprl_network_tpu_torch.envs.cacc import CACCEnv
+    from deeprl_network_tpu_torch.models.agents import MA2C_NC
+    from deeprl_network_tpu_torch.models.policies import tree_leaves
+    env = CACCEnv(EnvConfig(scenario="cacc_catchup", coop_gamma=0.9,
+                            episode_length=30))
+    n_step = 10
+    model = MA2C_NC(env.n_s_ls, env.n_a_ls, env.neighbor_mask,
+                    env.distance_mask, env.coop_gamma, total_step=1000,
+                    model_config=ModelConfig(batch_size=n_step,
+                                             reward_norm=1000.0), seed=0)
+    if model.device.type != "cuda" or model.spec.n_lstm != 64:
+        raise AssertionError("agents: not on the card at full width")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state, ob = env.reset(1, gen)
+    done = True
+    p0 = [p.clone() for p in tree_leaves(model.params)]
+    t0 = time.perf_counter()
+    for batch in range(2):
+        for _ in range(n_step):
+            zero_counts()
+            action = model.forward(ob[0].cpu().numpy(), done)
+            expect_counts("agents forward", 1, 0, "general")
+            state, ob, reward, d, _ = env.step(
+                state, torch.as_tensor(action, device="cuda")[None])
+            done = bool(d[0])
+            model.add_transition(ob[0].cpu().numpy(), action,
+                                 reward[0].cpu().numpy(), None, float(done))
+            if done:
+                state, ob = env.reset(1, gen)
+        zero_counts()
+        R = model.forward(ob[0].cpu().numpy(), done, out_type="v")
+        expect_counts("agents forward v", 1, 0, "general")
+        if done:
+            R = np.zeros_like(R)
+        zero_counts()
+        stats = model.backward(R)
+        expect_counts("agents backward", n_step, n_step, "general")
+        if not all(np.isfinite(v) for v in stats.values()):
+            raise AssertionError(f"agents: stats {stats}")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if all(torch.equal(a, b) for a, b in zip(tree_leaves(model.params), p0)):
+        raise AssertionError("agents: params did not change")
+    log(f"agents: MA2C_NC compat loop, 2 batches of {n_step} steps on the "
+        f"platoon (B=1, N=8, 64/64, f32): 1 launch per forward, {n_step} + "
+        f"{n_step} per backward, general variant; stats {stats}; "
+        f"{wall:.3f} s on {card}")
+
+
 def profile_step(fns, ts, step_s: float):
     """Device busy share and kernel time by name over one train_step under
     torch.profiler; ``step_s`` is the unprofiled step time for the share
@@ -817,6 +1155,11 @@ def main(argv=None) -> int:
     log(f"eval cacc with initial noise: return "
         f"{float(out['episode_return']):.4f} over "
         f"{float(out['episode_len']):.0f} steps")
+    del fns, grid_params, cacc, cacc_fns, cacc_ts
+    torch.cuda.empty_cache()
+    monaco_launches = run_monaco(card)
+    run_cli(card)
+    run_agents(card)
 
     sources = {"": "deeprl_network_tpu_torch/ops/csrc/lstm_cell_tc.cu",
                "_general": "deeprl_network_tpu_torch/ops/csrc/lstm_cell.cu"}
@@ -827,15 +1170,21 @@ def main(argv=None) -> int:
         base = name.replace("_general", "")
         # the flagship run's counts for the tensor-core kernels, the first
         # platoon run's for the general ones
-        n = (cacc_launches if name.endswith("_general") else launches)[name]
-        if n <= 0:
-            raise AssertionError(f"{name} was not launched on its path")
+        general = name.endswith("_general")
+        n = (cacc_launches if general else launches)[name]
+        n_monaco = monaco_launches[
+            "monaco ini" if general else "monaco b768"][base]
+        if n <= 0 or n_monaco <= 0:
+            raise AssertionError(f"{name} was not launched on its paths")
         kernels.append(dict(
             name=name, route="cuda", source=sources[name[len(base):]],
             replaces=replaces[base], launches=n,
             max_abs_err=e["max_abs_err"], ms=e["ms"],
             plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
-            bound_by=e["bound_by"], library_ms=None))
+            bound_by=e["bound_by"], library_ms=None,
+            launches_by_path={
+                "cacc ini" if general else "flagship": n,
+                "monaco ini" if general else "monaco b768": n_monaco}))
     log(f"total: {time.perf_counter() - t_start:.1f} s; "
         f"throughput {sps:.1f} env-steps/s on {card}")
     print(json.dumps({"kernels": kernels}))

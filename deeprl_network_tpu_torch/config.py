@@ -243,3 +243,24 @@ def load_config(path: str, agent: Optional[str] = None) -> Config:
         model=sections["MODEL_CONFIG"],
         train=sections["TRAIN_CONFIG"],
     )
+
+
+def save_config(cfg: Config, path: str) -> None:
+    """Snapshot the config into a run dir: the three sections with every
+    field, plus the ``agent`` key, so that ``load_config`` of either
+    package reads it back."""
+    cp = configparser.ConfigParser()
+    for sec_name, obj in (
+        ("ENV_CONFIG", cfg.env),
+        ("MODEL_CONFIG", cfg.model),
+        ("TRAIN_CONFIG", cfg.train),
+    ):
+        cp.add_section(sec_name)
+        for f in dataclasses.fields(obj):
+            v = getattr(obj, f.name)
+            if isinstance(v, tuple):
+                v = ",".join(str(x) for x in v)
+            cp.set(sec_name, f.name, str(v))
+    cp.set("MODEL_CONFIG", "agent", cfg.agent)
+    with open(path, "w") as fh:
+        cp.write(fh)

@@ -12,7 +12,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "deeprl_network_tpu_torch")
-BANNED = ("jax", "jaxlib", "flax", "optax", "deeprl_network_tpu")
+BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "deeprl_network_tpu")
 
 
 def _port_files():
@@ -55,6 +55,9 @@ def test_importing_the_port_loads_no_jax():
         "import deeprl_network_tpu_torch.envs.grid\n"
         "import deeprl_network_tpu_torch.envs.cacc\n"
         "import deeprl_network_tpu_torch.config\n"
+        "import deeprl_network_tpu_torch.envs.monaco\n"
+        "import deeprl_network_tpu_torch.main\n"
+        "import deeprl_network_tpu_torch.models.agents\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{BANNED!r}]\n"
         "assert not bad, bad\n")
@@ -78,3 +81,18 @@ def test_entry_points_raise_without_a_card():
     env = LargeGridEnv(cfg, device="cpu")
     with pytest.raises(RuntimeError, match="cuda"):
         make_a2c(env, ModelConfig(), TrainConfig(), agent="ma2c_nc")
+    from deeprl_network_tpu_torch.envs.monaco import RealNetEnv
+    from deeprl_network_tpu_torch.main import main
+    from deeprl_network_tpu_torch.models import agents
+    with pytest.raises(RuntimeError, match="cuda"):
+        RealNetEnv(EnvConfig(scenario="real_net"))
+    ini = os.path.join(ROOT, "configs", "config_ma2c_nc_net.ini")
+    for cmd in (["train", "--config-dir", ini],
+                ["evaluate", "--config-dir", ini, "--naive"]):
+        with pytest.raises(RuntimeError, match="cuda"):
+            main(["--base-dir", os.path.join(ROOT, "no_such_run")] + cmd)
+    for name in ("IA2C", "IA2C_FP", "IA2C_CU", "MA2C_NC", "MA2C_CNET",
+                 "MA2C_DIAL"):
+        with pytest.raises(RuntimeError, match="cuda"):
+            getattr(agents, name)(env.n_s_ls, env.n_a_ls, env.neighbor_mask,
+                                  env.distance_mask, 0.9, total_step=100)

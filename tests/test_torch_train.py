@@ -23,12 +23,14 @@ from deeprl_network_tpu.config import (
 )
 from deeprl_network_tpu.envs.cacc import CACCEnv as JCACCEnv
 from deeprl_network_tpu.envs.grid import LargeGridEnv as JLargeGridEnv
+from deeprl_network_tpu.envs.monaco import RealNetEnv as JRealNetEnv
 from deeprl_network_tpu.utils.rollout import make_a2c as jmake_a2c
 from deeprl_network_tpu_torch.config import (
     EnvConfig, ModelConfig, TrainConfig,
 )
 from deeprl_network_tpu_torch.envs.cacc import CACCEnv
 from deeprl_network_tpu_torch.envs.grid import LargeGridEnv
+from deeprl_network_tpu_torch.envs.monaco import RealNetEnv
 from deeprl_network_tpu_torch.models.policies import tree_leaves
 from deeprl_network_tpu_torch.utils.convert import params_from_jax
 from deeprl_network_tpu_torch.utils.rollout import make_a2c
@@ -46,13 +48,16 @@ CACC_KW = dict(scenario="cacc_slowdown", coop_gamma=0.9, episode_length=12,
 
 
 def _build_pair(agent, env_kw, **model_kw):
-    """(JAX fns, JAX state, port fns, port state) of one agent on the grid
-    or the platoon, from the same params."""
+    """(JAX fns, JAX state, port fns, port state) of one agent on the grid,
+    Monaco or the platoon, from the same params."""
     model_kw = dict(dict(batch_size=8, num_envs=4, num_fc=16, num_lstm=16),
                     **model_kw)
     if env_kw["scenario"].startswith("cacc"):
         jenv = JCACCEnv(JEnvConfig(**env_kw))
         tenv = CACCEnv(EnvConfig(**env_kw), device="cpu")
+    elif env_kw["scenario"] == "real_net":
+        jenv = JRealNetEnv(JEnvConfig(**env_kw))
+        tenv = RealNetEnv(EnvConfig(**env_kw), device="cpu")
     else:
         jenv = JLargeGridEnv(JEnvConfig(**env_kw))
         tenv = LargeGridEnv(EnvConfig(**env_kw), device="cpu")
