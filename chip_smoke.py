@@ -55,7 +55,15 @@ Phases (any failure raises, exits non-zero and prints no result line):
  12. agents: the reference-style host loop with the compat ``MA2C_NC`` class
      on the platoon for two ``n_step = 10`` batches, launch counts asserted
      per call;
- 13. (--profile) device busy share and kernel time by name over one
+ 13. parallel: data-parallel training through ``make_parallel_a2c`` in
+     worker processes (``parallel/smoke_worker.py``): the NCCL path at world
+     size 1 on the flagship (B=768); two gloo ranks sharing the card, (a) a
+     small f32 MA2C_NC platoon update against one process on the combined
+     batch (actions and obs exact, params within 1e-4) and (b) the flagship
+     at a global B=768, 384 a rank (launch counts, step, finite loss and
+     params bit-identical across ranks asserted); env-steps/s of 1 and 2
+     ranks, the gradient all-reduce's bytes and time; ``dryrun_multichip(2)``;
+ 14. (--profile) device busy share and kernel time by name over one
      flagship step, and the number of kernels in one step of each family.
 
 Output: a kernels JSON line and the card's name and power limit on lines
@@ -1049,6 +1057,139 @@ def run_agents(card: str):
         f"{wall:.3f} s on {card}")
 
 
+def parallel_rate(results, T: int) -> float:
+    """Global env-steps/s of a worker run over its updates after the first
+    (a warm-up): the ranks wait for each other every update, so the slowest
+    rank's time is the run's."""
+    B = results[0]["envs"] * len(results)
+    slowest = max(sum(r["update_s"][1:]) for r in results)
+    return (len(results[0]["update_s"]) - 1) * T * B / slowest
+
+
+def check_rank_results(what, results, n_updates, fwd, bwd, variant, T):
+    """Each rank's launch counts (``fwd`` + ``bwd`` an update, all of
+    ``variant``), finite loss, global step, and params equal across ranks."""
+    import math
+    B = results[0]["envs"] * len(results)
+    want = {"lstm_cell_fwd": fwd * n_updates,
+            f"lstm_cell_fwd_{variant}": fwd * n_updates,
+            "lstm_cell_bwd": bwd * n_updates,
+            f"lstm_cell_bwd_{variant}": bwd * n_updates}
+    for r in results:
+        if r["launches"] != want:
+            raise AssertionError(f"{what} rank {r['rank']}: kernel launches "
+                                 f"{r['launches']}, expected {want}")
+        if not all(math.isfinite(m["loss"]) for m in r["metrics"]):
+            raise AssertionError(f"{what} rank {r['rank']}: non-finite loss")
+        if r["step"] != n_updates * T * B or r["allreduce"]["calls"] != \
+                n_updates:
+            raise AssertionError(f"{what} rank {r['rank']}: step "
+                                 f"{r['step']}, {r['allreduce']['calls']} "
+                                 f"all-reduces in {n_updates} updates")
+    if len({r["params_sha256"] for r in results}) != 1:
+        raise AssertionError(f"{what}: params differ across ranks")
+    return results[0]["launches"]
+
+
+def run_parallel(card: str):
+    """Data-parallel training in worker processes on the one card: the NCCL
+    path at world size 1, two gloo ranks against one process on the combined
+    batch, the flagship at 2 ranks, and the dry run. Returns the launch
+    counts of rank 0 by run."""
+    import numpy as np
+    import torch
+    from deeprl_network_tpu_torch.config import (
+        EnvConfig, ModelConfig, TrainConfig,
+    )
+    from deeprl_network_tpu_torch.envs.cacc import CACCEnv
+    from deeprl_network_tpu_torch.graft_entry import dryrun_multichip
+    from deeprl_network_tpu_torch.models.policies import tree_leaves
+    from deeprl_network_tpu_torch.parallel.smoke_worker import run_ranks
+    from deeprl_network_tpu_torch.utils.rollout import make_a2c
+    T = 120
+    flagship = dict(agent="ma2c_nc",
+                    env=dict(scenario="large_grid", coop_gamma=0.9),
+                    model=dict(batch_size=T, num_envs=768,
+                               compute_dtype="bfloat16", sparse_comm=True,
+                               remat=True),
+                    train=dict(total_step=1_000_000), updates=3)
+    launches, rates = {}, {}
+    with tempfile.TemporaryDirectory() as d:
+        for what, n, backend in (("parallel nccl 1 rank", 1, "nccl"),
+                                 ("parallel gloo 2 ranks", 2, "gloo")):
+            t0 = time.perf_counter()
+            res = run_ranks(n, flagship, os.path.join(d, backend),
+                            device="cuda", backend=backend, timeout=600)
+            wall = time.perf_counter() - t0
+            # a warm-up and 2 timed updates; every launch takes the tc
+            # variant: rollout, bootstrap and remat recompute, T backward
+            launches[what] = check_rank_results(what, res, 3, 2 * T + 1, T,
+                                                "tc", T)
+            if {r["backend"] for r in res} != {backend}:
+                raise AssertionError(f"{what}: backend {res[0]['backend']}")
+            rates[what] = parallel_rate(res, T)
+            log(what + " " + json.dumps({
+                "ranks": n, "envs_a_rank": res[0]["envs"],
+                "env_steps_per_s": rates[what],
+                "update_s": {r["rank"]: r["update_s"] for r in res},
+                "loss": res[0]["metrics"][-1]["loss"],
+                "launches_per_update_a_rank": {
+                    k: v // 3 for k, v in res[0]["launches"].items()},
+                "grad_allreduce": res[0]["allreduce"],
+                "wall_s_with_process_start": wall, "card": card}))
+
+        # (a) 2 gloo ranks against one process on the combined batch
+        env_kw = dict(scenario="cacc_catchup", coop_gamma=0.9,
+                      episode_length=40)
+        model = dict(batch_size=8, num_envs=4, num_fc=16, num_lstm=16,
+                     compute_dtype="float32")
+        small = dict(agent="ma2c_nc", env=env_kw, model=model, updates=2,
+                     seed=7)
+        res = run_ranks(2, small, os.path.join(d, "small"), device="cuda",
+                        backend="gloo", timeout=600)
+        what = "parallel cacc 2 ranks"
+        launches[what] = check_rank_results(what, res, 2, 9, 8, "general", 8)
+        env = CACCEnv(EnvConfig(**env_kw), device="cuda")
+        fns = make_a2c(env, ModelConfig(**model),
+                       TrainConfig(total_step=10_000), agent="ma2c_nc",
+                       device="cuda")
+        actions, step = [], env.step
+
+        def recording_step(state, action):
+            actions.append(action.to(torch.uint8))
+            return step(state, action)
+        env.step = recording_step
+        ts = fns.init_state(7)
+        for _ in range(2):
+            ts, m = fns.train_step(ts)
+        rows = [np.load(r["npz"]) for r in res]
+        if not (np.array_equal(np.concatenate([z["actions"] for z in rows],
+                                              axis=1),
+                               torch.stack(actions).cpu().numpy())
+                and np.array_equal(np.concatenate([z["obs0"] for z in rows]),
+                                   ts.obs.cpu().numpy())):
+            raise AssertionError(f"{what}: actions or obs differ from one "
+                                 "process on the combined batch")
+        worst = max(float(np.abs(z[f"p{i}"] - p.cpu().numpy()).max())
+                    for z in rows for i, p in enumerate(tree_leaves(ts.params)))
+        if worst > 1e-4:
+            raise AssertionError(f"{what}: params differ from one process "
+                                 f"by {worst}")
+        log(f"{what}: 2 f32 updates of 2 gloo ranks x 2 envs sharing the "
+            f"card equal one process on 4 envs (actions and obs exact, max "
+            f"param diff {worst:.2e}, loss {res[0]['metrics'][-1]['loss']:.6f}"
+            f" vs {float(m['loss']):.6f})")
+
+    t0 = time.perf_counter()
+    dryrun_multichip(2)
+    log(f"parallel: dryrun_multichip(2) {time.perf_counter() - t0:.1f} s; "
+        f"flagship env-steps/s 1 rank (NCCL) "
+        f"{rates['parallel nccl 1 rank']:.1f}, 2 gloo ranks sharing the card "
+        f"{rates['parallel gloo 2 ranks']:.1f} on {card}: the cross-process "
+        f"path on one card, not scaling")
+    return launches
+
+
 def profile_step(fns, ts, step_s: float):
     """Device busy share and kernel time by name over one train_step under
     torch.profiler; ``step_s`` is the unprofiled step time for the share
@@ -1160,6 +1301,7 @@ def main(argv=None) -> int:
     monaco_launches = run_monaco(card)
     run_cli(card)
     run_agents(card)
+    parallel_launches = run_parallel(card)
 
     sources = {"": "deeprl_network_tpu_torch/ops/csrc/lstm_cell_tc.cu",
                "_general": "deeprl_network_tpu_torch/ops/csrc/lstm_cell.cu"}
@@ -1174,7 +1316,9 @@ def main(argv=None) -> int:
         n = (cacc_launches if general else launches)[name]
         n_monaco = monaco_launches[
             "monaco ini" if general else "monaco b768"][base]
-        if n <= 0 or n_monaco <= 0:
+        n_parallel = {k: v[base] for k, v in parallel_launches.items()
+                      if v.get(f"{base}_{'general' if general else 'tc'}")}
+        if n <= 0 or n_monaco <= 0 or not n_parallel:
             raise AssertionError(f"{name} was not launched on its paths")
         kernels.append(dict(
             name=name, route="cuda", source=sources[name[len(base):]],
@@ -1184,7 +1328,8 @@ def main(argv=None) -> int:
             bound_by=e["bound_by"], library_ms=None,
             launches_by_path={
                 "cacc ini" if general else "flagship": n,
-                "monaco ini" if general else "monaco b768": n_monaco}))
+                "monaco ini" if general else "monaco b768": n_monaco,
+                **n_parallel}))
     log(f"total: {time.perf_counter() - t_start:.1f} s; "
         f"throughput {sps:.1f} env-steps/s on {card}")
     print(json.dumps({"kernels": kernels}))

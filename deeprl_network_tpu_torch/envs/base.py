@@ -7,7 +7,12 @@ The JAX envs are pure functions over one env instance's state, batched with
     state, obs = env.reset(batch, generator)
     state, obs, reward, done, info = env.step(state, action)
 
-advance all B instances at once. An :class:`Env` instance holds only static
+advance all B instances at once. A data-parallel rank holds rows
+``[offset, offset + batch)`` of a global batch of ``total``: its resets
+draw their noise at the global shape and keep those rows
+(``reset(batch, generator, offset, total)``, through :func:`uniform_rows`),
+so ranks with one seed stay in step and the global batch draws what one
+process would. An :class:`Env` instance holds only static
 data (graph masks, phase tables, normalizers). :class:`EnvSpec` and
 :func:`hop_distances` are numpy, as in the JAX package.
 """
@@ -15,9 +20,10 @@ data (graph masks, phase tables, normalizers). :class:`EnvSpec` and
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 
 @dataclass(frozen=True)
@@ -65,17 +71,31 @@ class EnvSpec:
                         self.distance_mask.astype(np.float32)).astype(np.float32)
 
 
+def uniform_rows(shape, generator: Optional[torch.Generator], device,
+                 offset: int = 0, total: Optional[int] = None
+                 ) -> torch.Tensor:
+    """U[0, 1) noise of ``shape`` = (batch, ...): rows ``[offset, offset +
+    batch)`` of one draw at (``total``, ...) (default: the batch itself)."""
+    batch = shape[0]
+    total = batch if total is None else total
+    u = torch.rand((total,) + tuple(shape[1:]), generator=generator,
+                   device=device)
+    return u[offset:offset + batch]
+
+
 class Env:
     """Base class: holds an :class:`EnvSpec`; subclasses implement the
-    batched ``reset(batch, generator)`` and ``step(state, action)``."""
+    batched ``reset(batch, generator, offset, total)`` and
+    ``step(state, action)``."""
 
     spec: EnvSpec
 
-    def reset(self, batch: int, generator=None):
-        raise NotImplementedError
+    def reset(self, batch: int, generator=None, offset: int = 0,
+              total: Optional[int] = None):
+        raise TypeError(f"{type(self).__name__} has no batched reset")
 
     def step(self, state, action):
-        raise NotImplementedError
+        raise TypeError(f"{type(self).__name__} has no batched step")
 
     def record(self, state):
         """Per-step measurement series for evaluation output."""

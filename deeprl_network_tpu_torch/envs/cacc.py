@@ -29,13 +29,13 @@ trajectory-exact tests.
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from deeprl_network_tpu_torch.config import EnvConfig
-from deeprl_network_tpu_torch.envs.base import Env, EnvSpec
+from deeprl_network_tpu_torch.envs.base import Env, EnvSpec, uniform_rows
 from deeprl_network_tpu_torch.utils.device import resolve_device
 
 # (alpha, beta) OVM-gain table; action = index
@@ -126,18 +126,20 @@ class CACCEnv(Env):
         )
         return state, self._obs(state)
 
-    def reset(self, batch: int, generator: torch.Generator = None
+    def reset(self, batch: int, generator: torch.Generator = None,
+              offset: int = 0, total: Optional[int] = None
               ) -> Tuple[CACCState, torch.Tensor]:
-        """Fresh state for ``batch`` platoons; the initial noise is uniform
-        in +-init_noise_h / +-init_noise_v, drawn from ``generator`` (no
-        draw where a noise amplitude is 0)."""
+        """Fresh state for ``batch`` platoons (rows ``[offset, offset +
+        batch)`` of ``total``, see ``base.uniform_rows``); the initial noise
+        is uniform in +-init_noise_h / +-init_noise_v, drawn from
+        ``generator`` (no draw where a noise amplitude is 0)."""
         c = self.cfg
         shape = (batch, c.n_vehicle)
 
         def noise(amp):
             if amp == 0:
                 return torch.zeros(shape, device=self.device)
-            u = torch.rand(shape, generator=generator, device=self.device)
+            u = uniform_rows(shape, generator, self.device, offset, total)
             return (u * 2.0 - 1.0) * amp
 
         return self.reset_with_noise(noise(c.init_noise_h),

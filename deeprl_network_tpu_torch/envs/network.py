@@ -13,13 +13,15 @@ built in numpy exactly as in the JAX engine, then moved to ``device``.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from deeprl_network_tpu_torch.config import EnvConfig
-from deeprl_network_tpu_torch.envs.base import Env, EnvSpec, hop_distances
+from deeprl_network_tpu_torch.envs.base import (
+    Env, EnvSpec, hop_distances, uniform_rows,
+)
 from deeprl_network_tpu_torch.utils.device import resolve_device
 
 
@@ -154,14 +156,16 @@ class TrafficNetworkEnv(Env):
 
     # ---- batched functions ----
 
-    def reset(self, batch: int, generator: torch.Generator = None
+    def reset(self, batch: int, generator: torch.Generator = None,
+              offset: int = 0, total: Optional[int] = None
               ) -> Tuple[NetworkState, torch.Tensor]:
-        """Fresh state for ``batch`` instances. Queues start empty unless
-        ``init_density > 0``, in which case they are drawn uniformly from
-        ``generator``."""
+        """Fresh state for ``batch`` instances (rows ``[offset, offset +
+        batch)`` of ``total``, see ``base.uniform_rows``). Queues start
+        empty unless ``init_density > 0``, in which case they are drawn
+        uniformly from ``generator``."""
         L, dev = self.topo.n_lane, self.device
         if self.cfg.init_density > 0:
-            q0 = (torch.rand((batch, L), generator=generator, device=dev)
+            q0 = (uniform_rows((batch, L), generator, dev, offset, total)
                   * self.cfg.init_density * self.cfg.lane_capacity)
         else:
             q0 = torch.zeros((batch, L), device=dev)

@@ -6,7 +6,7 @@ and a fresh reset."""
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -25,21 +25,27 @@ def _tree_where(pred: torch.Tensor, a, b):
 
 class AutoResetEnv:
     """Wraps an :class:`Env`; on done, the returned state/obs are from a
-    fresh reset while reward/done describe the terminating transition."""
+    fresh reset while reward/done describe the terminating transition.
+    A data-parallel rank's wrapper serves rows ``[offset, offset + batch)``
+    of a global batch of ``total``: every reset draws at the global shape
+    and keeps those rows."""
 
-    def __init__(self, env: Env):
+    def __init__(self, env: Env, offset: int = 0,
+                 total: Optional[int] = None):
         self.env = env
         self.spec = env.spec
+        self.offset = offset
+        self.total = total
 
     def reset(self, batch: int, generator: torch.Generator = None):
-        return self.env.reset(batch, generator)
+        return self.env.reset(batch, generator, self.offset, self.total)
 
     def step(self, state, action: torch.Tensor,
              generator: torch.Generator = None
              ) -> Tuple[object, torch.Tensor, torch.Tensor, torch.Tensor,
                         Dict[str, torch.Tensor]]:
         s2, obs2, reward, done, info = self.env.step(state, action)
-        rs, robs = self.env.reset(action.shape[0], generator)
+        rs, robs = self.reset(action.shape[0], generator)
         env_new = _tree_where(done, rs, s2)
         obs_new = _where(done, robs, obs2)
         return env_new, obs_new, reward, done, info

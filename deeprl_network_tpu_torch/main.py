@@ -9,6 +9,11 @@ subcommands over .ini config files.
 
 Everything runs on the CUDA card unless ``--device cpu`` is given (before
 the subcommand); without a card and without that option the command fails.
+Under torchrun, ``train`` is data-parallel over the ranks (NCCL, one card
+a rank; gloo with ``--device cpu``); ``num_envs`` is the global batch:
+
+    torchrun --nproc_per_node=G -m deeprl_network_tpu_torch.main \
+        --base-dir /tmp/run train --config-dir configs/config_ma2c_nc_grid.ini
 """
 
 from __future__ import annotations
@@ -18,11 +23,17 @@ import copy
 import glob
 import logging
 import os
+import shlex
+import sys
 
 import torch
 
 from deeprl_network_tpu_torch.config import Config, load_config, save_config
 from deeprl_network_tpu_torch.envs.base import Env
+from deeprl_network_tpu_torch.parallel.distributed import (
+    is_primary, local_device, maybe_initialize, world_size,
+)
+from deeprl_network_tpu_torch.parallel.train import make_parallel_a2c
 from deeprl_network_tpu_torch.utils.checkpoint import CheckpointManager
 from deeprl_network_tpu_torch.utils.device import resolve_device
 from deeprl_network_tpu_torch.utils.logging import init_dir, init_log
@@ -71,8 +82,9 @@ def parse_args(argv=None):
                    help="capture a torch.profiler trace of three updates "
                         "at startup into base-dir/log/trace.json")
     t.add_argument("--single-device", action="store_true",
-                   help="accepted for compatibility: the run always uses "
-                        "one device (data parallelism is not ported)")
+                   help="disable automatic data-parallel training over "
+                        "the ranks when started by torchrun (then run "
+                        "without torchrun: one process, one device)")
     e = sub.add_parser("evaluate")
     e.add_argument("--config-dir", default=None,
                    help="defaults to the snapshot in base-dir/data")
@@ -89,18 +101,37 @@ def parse_args(argv=None):
 
 
 def train(args) -> None:
-    device = resolve_device(args.device)
+    n_ranks = world_size()
+    if n_ranks > 1 and args.single_device:
+        raise ValueError("--single-device trains in one process: run it "
+                         "without torchrun")
+    device = local_device(resolve_device(args.device))
+    # only the primary rank writes the run dir's logs and config snapshot
+    primary = is_primary()
     dirs = init_dir(args.base_dir)
-    init_log(dirs["log"])
+    init_log(dirs["log"] if primary else None)
     config = load_config(args.config_dir)
-    save_config(config, os.path.join(dirs["data"],
-                                     os.path.basename(args.config_dir)))
+    if primary:
+        save_config(config, os.path.join(dirs["data"],
+                                         os.path.basename(args.config_dir)))
     env = init_env(config, device=device)
-    if device.type == "cuda" and torch.cuda.device_count() > 1:
-        log.info("%d CUDA devices visible: training on %s alone; data-"
-                 "parallel training is not ported yet (ROADMAP.md queue 1 "
-                 "item 15)", torch.cuda.device_count(), env.device)
-    fns = init_agent(env, config, device=device)
+    if n_ranks > 1:
+        # the env batch split over the ranks (config num_envs is the
+        # GLOBAL batch and must divide by the world size), params
+        # replicated, grads averaged by one all_reduce an update
+        fns = make_parallel_a2c(env, config.model, config.train,
+                                agent=config.agent, device=device)
+        log.info("data-parallel over %d ranks (%d envs a rank)", n_ranks,
+                 config.model.num_envs // n_ranks)
+    else:
+        if device.type == "cuda" and torch.cuda.device_count() > 1:
+            log.info(
+                "%d CUDA devices visible: training on %s alone; to train "
+                "on all of them: torchrun --nproc_per_node=%d -m "
+                "deeprl_network_tpu_torch.main %s",
+                torch.cuda.device_count(), env.device,
+                torch.cuda.device_count(), shlex.join(args.argv))
+        fns = init_agent(env, config, device=device)
     log.info("agent=%s scenario=%s n_agent=%d device=%s",
              config.agent, config.scenario, env.n_agent, env.device)
     trainer = Trainer(fns, config, args.base_dir, seed=config.env.seed,
@@ -110,6 +141,9 @@ def train(args) -> None:
 
 
 def evaluate(args) -> None:
+    if world_size() > 1:
+        raise ValueError("evaluate runs in one process: run it without "
+                         "torchrun")
     if args.agents:
         for name in args.agents.split(","):
             if not name.strip():
@@ -152,6 +186,19 @@ def evaluate(args) -> None:
 
 def main(argv=None):
     args = parse_args(argv)
+    args.argv = list(sys.argv[1:] if argv is None else argv)
+    # data parallelism: join the ranks before any device use (no-op unless
+    # torchrun's variables are present); ranks on the CPU talk over gloo
+    if not maybe_initialize(backend="gloo" if args.device == "cpu"
+                            else None):
+        return run(args)
+    try:
+        run(args)
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def run(args) -> None:
     if args.option == "train":
         train(args)
     else:

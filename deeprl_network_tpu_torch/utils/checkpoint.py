@@ -12,6 +12,14 @@ nested dict of CPU tensors, ints, strings and lists (NamedTuples and the
 TrainState dataclass are stored by field name), so it loads with
 ``torch.load(..., weights_only=True)``. It is written under a temporary name
 and renamed, so a killed run leaves no half file.
+
+Under data parallelism (an initialized process group of more than one
+rank, ``parallel/``) every rank calls ``save``: the per-env fields of the
+TrainState (``rollout.PER_ENV_FIELDS``) are assembled to the global batch
+and rank 0 writes the one file, which is then exactly what one process
+training the global batch would write. ``restore`` on any world size loads
+the file and keeps the rank's rows, so a checkpoint moves between world
+sizes; ``restore_params`` reads the params alone in any process.
 """
 
 from __future__ import annotations
@@ -22,6 +30,10 @@ import re
 from typing import Any, List, Optional
 
 import torch
+
+from deeprl_network_tpu_torch.models.policies import tree_map
+from deeprl_network_tpu_torch.parallel import distributed
+from deeprl_network_tpu_torch.utils.rollout import PER_ENV_FIELDS, TrainState
 
 _NAME = re.compile(r"^checkpoint_(\d+)\.pt$")
 
@@ -111,6 +123,36 @@ def _from_plain(like: Any, node: Any, path: str) -> Any:
     raise TypeError(f"cannot restore a {type(like).__name__} at {path!r}")
 
 
+def _map_plain(fn, node):
+    """A stored plain tree (dicts of tensors) with ``fn`` applied to every
+    tensor."""
+    if isinstance(node, dict):
+        return {k: _map_plain(fn, v) for k, v in node.items()}
+    return fn(torch.as_tensor(node))
+
+
+def _global_state(ts: TrainState) -> TrainState:
+    """The TrainState of the whole global batch, from every rank's rows
+    (a collective: every rank must call it)."""
+    return dataclasses.replace(ts, **{
+        f: tree_map(distributed.gather_rows, getattr(ts, f))
+        for f in PER_ENV_FIELDS})
+
+
+def _rank_rows(raw: dict, like: TrainState) -> dict:
+    """The stored TrainState tree with its per-env fields cut to this
+    rank's rows, the rows ``like`` holds."""
+    b, n, r = like.obs.shape[0], distributed.world_size(), \
+        distributed.rank()
+    stored = torch.as_tensor(raw["obs"]).shape[0]
+    if stored != b * n:
+        raise ValueError(
+            f"checkpoint holds a global batch of {stored} envs; this run "
+            f"has {n} rank(s) of {b} (a global batch of {b * n})")
+    return dict(raw, **{f: _map_plain(lambda t: t[r * b:(r + 1) * b], raw[f])
+                        for f in PER_ENV_FIELDS})
+
+
 class CheckpointManager:
     def __init__(self, model_dir: str, max_to_keep: int = 5):
         self.path = os.path.abspath(model_dir)
@@ -127,7 +169,27 @@ class CheckpointManager:
     def save(self, step: int, train_state: Any) -> None:
         """Write ``train_state`` (a TrainState, or any tree of NamedTuples,
         dicts, lists, tensors and ints) as the checkpoint of ``step``, then
-        drop the oldest checkpoints beyond ``max_to_keep``."""
+        drop the oldest checkpoints beyond ``max_to_keep``. Under data
+        parallelism every rank calls it with its TrainState, and rank 0
+        writes the global one."""
+        if distributed.world_size() == 1:
+            self._write(step, train_state)
+            return
+        state = _global_state(train_state)
+        ok = False
+        try:
+            if distributed.is_primary():
+                self._write(step, state)
+            ok = True
+        finally:
+            # a barrier that also tells the other ranks whether the file
+            # was written (rank 0 raises its own error)
+            written = distributed.all_ok(ok, train_state.obs.device)
+        if not written:
+            raise RuntimeError(f"rank 0 failed to write the checkpoint of "
+                               f"step {step}")
+
+    def _write(self, step: int, train_state: Any) -> None:
         final = self._file(step)
         tmp = final + f".tmp{os.getpid()}"
         try:
@@ -157,10 +219,15 @@ class CheckpointManager:
     def restore(self, train_state_like: Any, step: Optional[int] = None
                 ) -> Any:
         """The stored state in the structure, devices and dtypes of
-        ``train_state_like``; ``None`` when there is no checkpoint."""
+        ``train_state_like``; ``None`` when there is no checkpoint. A
+        TrainState's per-env fields are this rank's rows of the stored
+        global batch."""
         raw = self._load(step)
         if raw is None:
             return None
+        if (isinstance(train_state_like, TrainState)
+                and distributed.world_size() > 1):
+            raw = _rank_rows(raw, train_state_like)
         return _from_plain(train_state_like, raw, "state")
 
     def restore_params(self, params_like: Any,

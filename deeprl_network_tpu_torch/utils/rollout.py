@@ -24,9 +24,17 @@ Two gradient paths share one rollout step (``_env_policy_step``):
   the carry the window started with.
 
 ``eval_episode`` and ``record_episode`` run one env instance (B = 1 through
-the same batched functions) with f32 params. Data-parallel ``axis_name``
-is not ported yet (ROADMAP.md queue 1 item 15) and raises
-``NotImplementedError``.
+the same batched functions) with f32 params.
+
+Data parallelism (``axis_name``, driven by ``parallel/train.py``): rank r
+holds rows ``[r*B, (r+1)*B)`` of a global batch of ``B * n_replicas``
+envs. Every rank seeds one generator alike and draws every noise tensor
+(initial reset, Gumbel noise, auto-reset) at the GLOBAL batch shape,
+keeping its own rows, so the generators stay in lockstep and the global
+batch draws exactly what one process draws: an N-rank update equals the
+1-rank update on the combined batch up to float reassociation. The
+gradients and the device-side metrics are averaged over ranks by one
+``all_reduce`` before the optimizer.
 """
 
 from __future__ import annotations
@@ -53,6 +61,7 @@ from deeprl_network_tpu_torch.models.policies import (
     policy_consts, policy_step_batched, tree_leaves, tree_map,
     tree_unflatten,
 )
+from deeprl_network_tpu_torch.parallel import distributed
 from deeprl_network_tpu_torch.utils.device import resolve_device
 from deeprl_network_tpu_torch.utils.scheduler import make_schedule
 
@@ -73,6 +82,12 @@ class TrainState:
     ep_len: torch.Tensor          # [B]
     last_ep_ret: torch.Tensor     # [B] most recent completed episode return
     last_ep_len: torch.Tensor     # [B]
+
+
+# the TrainState fields that hold one row per env (a data-parallel rank holds
+# its rows of the global batch); the rest is replicated
+PER_ENV_FIELDS = ("env_state", "obs", "fp", "carry", "prev_done", "ep_ret",
+                  "ep_len", "last_ep_ret", "last_ep_len")
 
 
 def make_policy_spec(env_spec, mcfg: ModelConfig, agent: str) -> PolicySpec:
@@ -137,18 +152,33 @@ def _default_horizon(env) -> int:
 
 def make_a2c(env, mcfg: ModelConfig, tcfg: TrainConfig, agent: str = "ia2c",
              num_envs: Optional[int] = None, axis_name: Optional[str] = None,
-             device="cuda") -> A2CFns:
+             n_replicas: int = 1, device="cuda") -> A2CFns:
     """Build the A2C functions for one env + algorithm on ``device`` (the
-    env must live on the same device)."""
+    env must live on the same device).
+
+    ``axis_name``: if set, this process is one rank of the default
+    ``torch.distributed`` process group (``parallel/distributed.py``
+    ``maybe_initialize``) holding ``num_envs`` envs, and ``n_replicas``
+    must be the group's size: gradients and metrics are averaged over the
+    ranks, and step counting and the lr/entropy schedules advance by GLOBAL
+    env steps."""
     dev = resolve_device(device)
     if env.device.type != dev.type:
         raise ValueError(f"env lives on {env.device}, make_a2c asked for "
                          f"{dev}")
     dev = env.device
+    rank = 0
     if axis_name is not None:
-        raise NotImplementedError(
-            "data-parallel training (axis_name) is not ported yet "
-            "(ROADMAP.md queue 1 item 15)")
+        if not torch.distributed.is_initialized():
+            raise ValueError(
+                f"axis_name={axis_name!r} needs the default process group: "
+                "call deeprl_network_tpu_torch.parallel.distributed."
+                "maybe_initialize() first (or use make_parallel_a2c)")
+        if n_replicas != distributed.world_size():
+            raise ValueError(
+                f"n_replicas={n_replicas} but the process group has "
+                f"{distributed.world_size()} ranks")
+        rank = distributed.rank()
     cdt = torch.bfloat16 if mcfg.compute_dtype == "bfloat16" \
         else torch.float32
     if cdt != torch.float32 and not mcfg.fused_grad:
@@ -170,14 +200,17 @@ def make_a2c(env, mcfg: ModelConfig, tcfg: TrainConfig, agent: str = "ia2c",
                          "envs, hysteresis, and CACC, fixed-gain OVM)")
     kick_horizon = max(mcfg.kickstart_ratio * tcfg.total_step, 1.0)
     consensus = agent == "ia2c_cu"
-    wenv = AutoResetEnv(env)
     spec = make_policy_spec(env.spec, mcfg, agent)
     consts = policy_consts(spec, dev)
     n_env = num_envs or mcfg.num_envs
+    # this rank's rows [row0, row0 + n_env) of the global batch
+    n_global, row0 = n_env * n_replicas, rank * n_env
+    wenv = AutoResetEnv(env, row0, n_global)
     T = mcfg.n_step
     D = torch.as_tensor(env.spec.spatial_discount(), device=dev)
     gamma = mcfg.gamma
-    steps_per_update = T * n_env
+    # one update consumes T steps x B envs x replicas GLOBAL env steps
+    steps_per_update = T * n_global
     lr_env_sched = make_schedule(mcfg.lr_decay, mcfg.lr_init,
                                  tcfg.total_step, mcfg.lr_min)
     ent_sched = make_schedule(mcfg.entropy_decay, mcfg.entropy_coef,
@@ -208,11 +241,17 @@ def make_a2c(env, mcfg: ModelConfig, tcfg: TrainConfig, agent: str = "ia2c",
             spec, params, carry, obs.to(pdt), fp.to(pdt), done, consts)
         return carry2, logits.float(), values.float()
 
-    def init_state(seed: int = 0, params: Optional[PolicyParams] = None
-                   ) -> TrainState:
+    def init_state(seed: int = 0, params: Optional[PolicyParams] = None,
+                   env_offset: Optional[int] = None) -> TrainState:
         """Fresh TrainState: params from ``seed`` unless given, env reset,
         zero carry, uniform fingerprints, and a device Generator seeded
-        with ``seed`` for sampling and env resets."""
+        with ``seed`` for sampling and env resets. ``env_offset``, the
+        global index of the state's first env, is this rank's (rank x
+        ``num_envs``, 0 in one process): ``train_step`` draws for those
+        rows, so no other value is accepted."""
+        if env_offset is not None and env_offset != row0:
+            raise ValueError(f"env_offset={env_offset}: this rank holds "
+                             f"the envs from {row0}")
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
         if params is None:
@@ -296,7 +335,8 @@ def make_a2c(env, mcfg: ModelConfig, tcfg: TrainConfig, agent: str = "ia2c",
         infos: Dict[str, list] = {}
         for t in range(T):
             g = (gumbel[t].to(dev) if gumbel is not None else
-                 gumbel_noise(ts.generator, (n_env, n_agent, n_act), dev))
+                 gumbel_noise(ts.generator, (n_global, n_agent, n_act),
+                              dev)[row0:row0 + n_env])
             st, rec = _env_policy_step(mparams, st, g, ts.generator)
             if torch.is_grad_enabled():     # the fused path's loss terms
                 rec["logp"], rec["ent"] = action_stats(rec["logits"],
@@ -362,8 +402,9 @@ def make_a2c(env, mcfg: ModelConfig, tcfg: TrainConfig, agent: str = "ia2c",
 
     def train_step(ts: TrainState, gumbel: Optional[torch.Tensor] = None
                    ) -> Tuple[TrainState, Dict[str, Any]]:
-        """One update. ``gumbel`` [T, B, N, A] replaces the sampling noise
-        drawn from ``ts.generator`` (tests feed the JAX run's noise)."""
+        """One update. ``gumbel`` [T, B, N, A] (this rank's rows) replaces
+        the sampling noise drawn from ``ts.generator`` (tests feed the JAX
+        run's noise)."""
         beta = ent_sched(ts.step)
         leaves = [p.detach().requires_grad_(True)
                   for p in tree_leaves(ts.params)]
@@ -380,6 +421,23 @@ def make_a2c(env, mcfg: ModelConfig, tcfg: TrainConfig, agent: str = "ia2c",
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, grads)]
+        dev_metrics = {
+            "loss": loss.detach(),
+            "policy_loss": stats.policy.detach(),
+            "value_loss": stats.value.detach(),
+            "entropy": stats.entropy.detach(),
+            "episode_return": torch.mean(st.last_ret),
+            "episode_len": torch.mean(st.last_len),
+            **extra,
+        }
+        if axis_name is not None:
+            # the global batch mean: one all_reduce of the gradients and
+            # the device-side metrics together
+            names = list(dev_metrics)
+            out = distributed.all_reduce_mean(
+                grads + [dev_metrics[k] for k in names])
+            grads = out[:len(grads)]
+            dev_metrics = dict(zip(names, out[len(grads):]))
         grad_norm = global_norm(grads)
         updates, opt_state = optimizer.update(grads, ts.opt_state)
         new_params = tree_unflatten(
@@ -403,18 +461,8 @@ def make_a2c(env, mcfg: ModelConfig, tcfg: TrainConfig, agent: str = "ia2c",
             step=ts.step + steps_per_update, ep_ret=st.ep_ret,
             ep_len=st.ep_len, last_ep_ret=st.last_ret,
             last_ep_len=st.last_len)
-        metrics = {
-            "loss": loss.detach(),
-            "policy_loss": stats.policy.detach(),
-            "value_loss": stats.value.detach(),
-            "entropy": stats.entropy.detach(),
-            "grad_norm": grad_norm,
-            "episode_return": torch.mean(st.last_ret),
-            "episode_len": torch.mean(st.last_len),
-            "lr": lr_env_sched(ts.step),
-            "beta": beta,
-            **extra,
-        }
+        metrics = {**dev_metrics, "grad_norm": grad_norm,
+                   "lr": lr_env_sched(ts.step), "beta": beta}
         return new_ts, metrics
 
     def _episode_start(params, seed_or_generator):

@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from deeprl_network_tpu_torch.config import Config
+from deeprl_network_tpu_torch.parallel.distributed import is_primary
 from deeprl_network_tpu_torch.utils.checkpoint import CheckpointManager
 from deeprl_network_tpu_torch.utils.logging import MetricWriter, init_dir
 from deeprl_network_tpu_torch.utils.rollout import A2CFns, TrainState
@@ -89,9 +90,11 @@ class Trainer:
     """Sequences fused train steps; logs and checkpoints.
 
     reference: utils.py Trainer.run (~L170): explore/backward collapse
-    into fns.train_step; perform() becomes fns.eval_episode. Until data
-    parallelism is ported (ROADMAP.md queue 1 item 15) a Trainer is always
-    the primary (and only) process.
+    into fns.train_step; perform() becomes fns.eval_episode. Under data
+    parallelism (``fns`` from ``parallel/train.py``) every rank runs a
+    Trainer: all of them take every update, the profiler's updates and
+    every checkpoint save (collectives), and only the primary writes log
+    rows, the profiler trace and in-train evaluations.
     """
 
     def __init__(self, fns: A2CFns, cfg: Config, output_dir: str,
@@ -111,14 +114,16 @@ class Trainer:
         # <= 0 keeps the save-on-log behavior
         self._save_every = int(getattr(cfg.train, "save_interval", 0))
         self._next_save = self._save_every
-        # csv/jsonl plus TensorBoard scalars under log/ (the reference's
-        # TF1 summary_writer surface)
-        self.train_writer = MetricWriter(self.dirs["data"], "train_log",
-                                         tb_dir=self.dirs["log"])
-        self.test_writer = MetricWriter(self.dirs["data"], "test_log",
-                                        tb_dir=self.dirs["log"])
         self.ckpt = CheckpointManager(self.dirs["model"])
         self.seed = seed
+        self.primary = is_primary()
+        if self.primary:
+            # csv/jsonl plus TensorBoard scalars under log/ (the
+            # reference's TF1 summary_writer surface)
+            self.train_writer = MetricWriter(self.dirs["data"], "train_log",
+                                             tb_dir=self.dirs["log"])
+            self.test_writer = MetricWriter(self.dirs["data"], "test_log",
+                                            tb_dir=self.dirs["log"])
 
     def run(self, restore: bool = False) -> TrainState:
         ts = self.fns.init_state(self.seed)
@@ -145,9 +150,10 @@ class Trainer:
                     ts, _ = self.fns.train_step(ts)
                 if on_card:
                     torch.cuda.synchronize(ts.obs.device)
-            trace = os.path.join(self.dirs["log"], "trace.json")
-            prof.export_chrome_trace(trace)
-            log.info("profiler trace written to %s", trace)
+            if self.primary:
+                trace = os.path.join(self.dirs["log"], "trace.json")
+                prof.export_chrome_trace(trace)
+                log.info("profiler trace written to %s", trace)
         t0 = time.time()
         window_metrics = []
         last_step, last_t = self.counter.cur_step, t0
@@ -167,20 +173,13 @@ class Trainer:
                     torch.cuda.current_stream(ts.obs.device).synchronize()
                 updates_since_sync = 0
             if self.counter.should_log():
-                # ONE device->host transfer for the whole window
-                m = _window_means(window_metrics)
-                now = time.time()
-                sps = (self.counter.cur_step - last_step) / max(
-                    now - last_t, 1e-9)
-                last_step, last_t = self.counter.cur_step, now
-                row = {"step": self.counter.cur_step,
-                       "wall_s": now - t0, "env_steps_per_s": sps, **m}
-                self.train_writer.write(row)
-                log.info(
-                    "step %d | R_ep %.1f | loss %.3f | sps %.0f",
-                    self.counter.cur_step, m.get("episode_return", 0.0),
-                    m["loss"], sps)
+                if self.primary:
+                    last_t = self._log_row(window_metrics, t0, last_step,
+                                           last_t)
+                last_step = self.counter.cur_step
                 window_metrics = []
+                # every rank saves (under data parallelism the save
+                # gathers the env batch; rank 0 writes)
                 if self._save_every <= 0:
                     self.ckpt.save(self.counter.cur_step, ts)
             if (self._save_every > 0
@@ -192,10 +191,27 @@ class Trainer:
                 self._next_save = (self.counter.cur_step // self._save_every
                                    + 1) * self._save_every
                 self.ckpt.save(self.counter.cur_step, ts)
-            if self.counter.should_test() and self.in_train_test:
+            if (self.counter.should_test() and self.in_train_test
+                    and self.primary):
                 self.test(ts)
         self.ckpt.save(self.counter.cur_step, ts)
         return ts
+
+    def _log_row(self, window_metrics, t0: float, last_step: int,
+                 last_t: float) -> float:
+        """Write the train_log row of the window since ``last_step``;
+        returns the time it was taken at."""
+        # ONE device->host transfer for the whole window
+        m = _window_means(window_metrics)
+        now = time.time()
+        sps = (self.counter.cur_step - last_step) / max(now - last_t, 1e-9)
+        row = {"step": self.counter.cur_step, "wall_s": now - t0,
+               "env_steps_per_s": sps, **m}
+        self.train_writer.write(row)
+        log.info("step %d | R_ep %.1f | loss %.3f | sps %.0f",
+                 self.counter.cur_step, m.get("episode_return", 0.0),
+                 m["loss"], sps)
+        return now
 
     def test(self, ts: TrainState) -> Dict[str, float]:
         rows = []

@@ -58,6 +58,8 @@ def test_importing_the_port_loads_no_jax():
         "import deeprl_network_tpu_torch.envs.monaco\n"
         "import deeprl_network_tpu_torch.main\n"
         "import deeprl_network_tpu_torch.models.agents\n"
+        "import deeprl_network_tpu_torch.parallel.smoke_worker\n"
+        "import deeprl_network_tpu_torch.graft_entry\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{BANNED!r}]\n"
         "assert not bad, bad\n")

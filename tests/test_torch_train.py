@@ -150,12 +150,13 @@ def test_train_step_matches_jax_on_cacc(agent, masked):
     ("ma2c_nc", dict(axis_name="data"), None),
 ])
 def test_unported_paths_raise(agent, model_kw, call):
-    """What the port does not have yet raises, pointing at ROADMAP.md."""
+    """What the port refuses raises, naming the way out: ``axis_name``
+    without the default process group points at ``maybe_initialize``."""
     model_kw = dict(model_kw)
     axis = model_kw.pop("axis_name", None)
     env = LargeGridEnv(EnvConfig(scenario="large_grid", coop_gamma=0.9),
                        device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(ValueError, match="maybe_initialize"):
         fns = make_a2c(env, ModelConfig(num_envs=2, **model_kw),
                        TrainConfig(), agent=agent, axis_name=axis,
                        device="cpu")
