@@ -13,14 +13,18 @@ Phases (any failure raises, exits non-zero and prints no result line):
      the main path's shape (B=768, N=25, F=H=64) in f32 and bf16, at the
      CACC platoon's shape (B=32, N=8), at B=1 (eval and record), at the
      Monaco shapes (N=28: B=32 and B=1 in f32, B=768 in bf16), at ragged
-     shapes and at a width that takes the general kernel, forward and
-     backward; time them at the main path's, the platoon's, the B=1 and the
-     Monaco shapes from replays of a CUDA graph of 20 launches (``ms``: inputs warm
-     in L2; ``cold_ms``: L2 flushed before every launch; ``call_ms``: the
-     host's time per call), the earlier general kernel in bf16 beside the
-     tensor-core one;
+     shapes, at widths that take the general kernels (odd widths; cells
+     wider than 256: F=64 H=256 in f32 and bf16, F=128 H=1024 in f32),
+     forward and backward, the backward bitwise equal across two calls;
+     time them at the main path's, the platoon's, the B=1, the Monaco and
+     the wide f32 shapes from replays of a CUDA graph of 20 launches
+     (``ms``: inputs warm in L2; ``cold_ms``: L2 flushed before every
+     launch; ``call_ms``: the host's time per call), the general kernels in
+     bf16 beside the tensor-core ones, and at each f32 shape the per-agent
+     products alone through ``torch.bmm`` (``*_product_ms``);
   4. reference: a small f32 train step on the card against the same step on
-     the CPU (plain twins, held against the JAX package by the CPU tests);
+     the CPU (plain twins, held against the JAX package by the CPU tests),
+     and the same at num_fc=64, num_lstm=256 (a cell wider than 256);
   5. main path: the flagship MA2C_NC train step on the 5x5 grid at full
      width (B=768 envs, T=120, bf16 with f32 masters, sparse_comm, remat)
      through ``make_a2c``: a warm-up step and 3 timed steps, with the kernel
@@ -93,8 +97,11 @@ EVAL_B1 = dict(B=1, N=25, F=64, H=64)       # eval and record on the grid
 MONACO = dict(B=32, N=28, F=64, H=64)
 MONACO_B1 = dict(B=1, N=28, F=64, H=64)
 MONACO_768 = dict(B=768, N=28, F=64, H=64)
+# cells wider than the general kernels' old cap of F + H <= 256
+WIDE = dict(B=37, N=3, F=64, H=256)
+WIDE_1024 = dict(B=5, N=2, F=128, H=1024)
 TIMED_SHAPES = ("flagship", "cacc", "eval_b1", "monaco", "monaco_b1",
-                "monaco_768")
+                "monaco_768", "wide")
 MONACO_INI = "configs/config_ma2c_nc_net.ini"
 AGENTS = ("ia2c", "ia2c_fp", "ia2c_cu", "ma2c_nc", "ma2c_cnet", "ma2c_dial")
 CACC_CONFIGS = ("configs/config_ma2c_nc_cacc_catchup.ini",
@@ -103,6 +110,7 @@ RAGGED = dict(B=12, N=3, F=16, H=16)
 RAGGED_WIDE = dict(B=37, N=5, F=32, H=48)
 RAGGED_FULL = dict(B=100, N=25, F=64, H=64)
 ODD_WIDTH = dict(B=37, N=5, F=24, H=40)     # takes the general kernel
+ODD_PIECES = dict(B=9, N=2, F=5, H=7)       # rows of no whole 16-byte pieces
 FLUSH_BYTES = 128 * 2 ** 20                 # more than twice the 50 MB L2
 TOL = {("float32", "fwd"): 1e-5, ("float32", "bwd"): 1e-4,
        ("bfloat16", "fwd"): 0.05, ("bfloat16", "bwd"): 0.05}
@@ -265,6 +273,26 @@ def cell_args(shape, dtype):
     return fwd_args, bwd_args
 
 
+def product_ms(shape, fwd_args, bwd_args):
+    """A reference reading beside the f32 cell kernels: the per-agent
+    products alone through ``torch.bmm`` in f32 (TF32 off), the forward's
+    two (x wx, h_in wh) and the backward's four (gz wx^T, gz wh^T, x^T gz,
+    h_in^T gz), on operands laid out for bmm beforehand. Not a library call
+    of the cell (no single call computes it)."""
+    import torch
+    wx, wh = fwd_args[0], fwd_args[1]
+    x, h_in = (t.transpose(0, 1).contiguous() for t in (bwd_args[3],
+                                                         bwd_args[4]))
+    gz = torch.randn(shape["N"], shape["B"], 4 * shape["H"],
+                     device="cuda", dtype=x.dtype)
+    xT, hT, wxT, whT = (t.transpose(1, 2).contiguous()
+                        for t in (x, h_in, wx, wh))
+    fwd = lambda: (torch.bmm(x, wx), torch.bmm(h_in, wh))
+    bwd = lambda: (torch.bmm(gz, wxT), torch.bmm(gz, whT), torch.bmm(xT, gz),
+                   torch.bmm(hT, gz))
+    return dict(fwd_product_ms=graph_ms(fwd), bwd_product_ms=graph_ms(bwd))
+
+
 def check_kernels():
     """Kernels vs twins at the flagship, ragged and edge shapes, every
     variant the dispatch rule can take; timing at the flagship shape (the
@@ -287,7 +315,11 @@ def check_kernels():
              ("ragged", RAGGED, "bfloat16", None),
              ("ragged_wide", RAGGED_WIDE, "bfloat16", None),
              ("ragged_full", RAGGED_FULL, "bfloat16", None),
-             ("odd_width", ODD_WIDTH, "bfloat16", None)]
+             ("odd_width", ODD_WIDTH, "bfloat16", None),
+             ("odd_pieces", ODD_PIECES, "float32", None),
+             ("wide", WIDE, "float32", None),
+             ("wide", WIDE, "bfloat16", None),
+             ("wide_1024", WIDE_1024, "float32", None)]
     for shape_name, shape, dt_name, forced in cases:
         dt = getattr(torch, dt_name)
         variant = forced or lc.kernel_variant(dt, shape["F"], shape["H"])
@@ -336,6 +368,8 @@ def check_kernels():
                         lambda: lc.lstm_cell_fwd_ref(*fwd_args), n=5),
                     bwd_plain_ms=graph_ms(
                         lambda: lc.lstm_cell_bwd_ref(*bwd_args), n=5))
+            if dt_name == "float32":
+                row.update(product_ms(shape, fwd_args, bwd_args))
             (fb, ff), (bb, bf) = cell_bytes_flops(**shape, dtype=dt)
             row["fwd_bound_ms"], row["fwd_bound_by"] = bound(fb, ff, dt_name)
             row["bwd_bound_ms"], row["bwd_bound_by"] = bound(bb, bf, dt_name)
@@ -358,7 +392,8 @@ def check_kernels():
 
 def tune_kernels():
     """Times of the tensor-core kernels at the flagship bf16 shape for other
-    grids (blocks per agent) than the wrapper's default."""
+    grids (blocks per agent) than the wrapper's default; every cell kernel's
+    time by name under torch.profiler."""
     import torch
     from deeprl_network_tpu_torch.ops import lstm_cell as lc
     fwd_args, bwd_args = cell_args(FLAGSHIP, torch.bfloat16)
@@ -372,17 +407,27 @@ def tune_kernels():
         log("tune " + json.dumps(dict(
             kernel="lstm_cell_bwd", splits=splits,
             ms=graph_ms(bwd), cold_ms=graph_ms(bwd, flush=flush))))
-    # the backward's two passes apart, at the wrapper's default grid
+    # the backward's passes apart, at the wrapper's default grid: the
+    # tensor-core kernels at the flagship shape, the general ones at the f32
+    # shapes of their paths
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(20):
-            lc.lstm_cell_fwd(*fwd_args)
-            lc.lstm_cell_bwd(*bwd_args)
-        torch.cuda.synchronize()
-    for ev in prof.key_averages():
-        if "lstm" in ev.key:
-            log(f"tune profile: {ev.self_device_time_total / ev.count / 1e3:.5f}"
-                f" ms/launch over {ev.count} launches of {ev.key[:60]}")
+    for name, shape, dt in (("flagship", FLAGSHIP, torch.bfloat16),
+                            ("flagship", FLAGSHIP, torch.float32),
+                            ("monaco", MONACO, torch.float32),
+                            ("cacc", CACC, torch.float32),
+                            ("eval_b1", EVAL_B1, torch.float32),
+                            ("wide", WIDE, torch.float32)):
+        fwd_args, bwd_args = cell_args(shape, dt)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(20):
+                lc.lstm_cell_fwd(*fwd_args)
+                lc.lstm_cell_bwd(*bwd_args)
+            torch.cuda.synchronize()
+        for ev in prof.key_averages():
+            if "lstm" in ev.key:
+                log(f"tune profile {name} {dt}: "
+                    f"{ev.self_device_time_total / ev.count / 1e3:.5f} "
+                    f"ms/launch over {ev.count} launches of {ev.key[:70]}")
 
 
 def make_flagship(device, env_kw=None, agent="ma2c_nc", **overrides):
@@ -444,6 +489,18 @@ def expect_counts(what, fwd, bwd, variant):
         raise AssertionError(f"{what}: kernel launches {got}, expected "
                              f"{want}")
     return got
+
+
+def check_wide_reference():
+    """F1 closed end to end: a small f32 MA2C_NC step at num_fc=64,
+    num_lstm=256 (F + H = 320, past the general kernels' old cap) on the
+    card against the CPU port; every cell launch is general (remat: 2T+1
+    forward and T backward an update, two updates)."""
+    zero_counts()
+    check_reference("reference wide",
+                    lambda device: small_grid(device, num_fc=64,
+                                              num_lstm=256), 5)
+    expect_counts("reference wide", 2 * 17, 2 * 8, "general")
 
 
 def check_finite_and_moved(what, m, params, p0):
@@ -1272,6 +1329,7 @@ def main(argv=None) -> int:
     if args.kernels_only:
         return 2
     check_reference("reference", small_grid, 5)
+    check_wide_reference()
     launches, sps, fns, ts = run_main_path(card)
     step_s = 120 * 768 / sps
     if args.profile:

@@ -5,8 +5,9 @@ Counterpart of ``deeprl_network_tpu/ops/pallas_lstm.py``. The multi-agent
 policies apply N independent LSTM cells (per-agent weights) to a
 [B, N, features] activation every control step. ``fused_agent_lstm`` runs
 that whole cell (both products, bias, the four gates, the done-masked state
-update) as one kernel launch, and its backward as one more pair of
-launches that recompute the gates instead of storing them.
+update) as one kernel launch, and its backward as two (``tc``) or three
+(``general``) more launches that recompute the gates instead of storing
+them.
 
 Dispatch is first by the tensors' device: CUDA tensors launch a kernel (and
 raise if a launch fails; there is no fallback), CPU tensors run the plain
@@ -14,8 +15,9 @@ PyTorch twins ``lstm_cell_fwd_ref`` / ``lstm_cell_bwd_ref``, which keep the
 kernels' signatures and rounding points. On the card there are two
 hand-written kernels, chosen by ``kernel_variant(dtype, F, H)``:
 ``csrc/lstm_cell_tc.cu`` (bf16 on the tensor cores, the flagship path) and
-``csrc/lstm_cell.cu`` (f32 products on the CUDA cores: float32, and widths
-the first does not take). Each source states its design and its bound.
+``csrc/lstm_cell.cu`` (f32 products on the CUDA cores: float32, and bf16
+widths the first does not take; any F and H, tiles chosen by
+``general_plan``). Each source states its design and its bound.
 Both wrappers count their launches in ``LAUNCHES``: totals under
 ``lstm_cell_fwd`` / ``lstm_cell_bwd`` and, beside them, per variant
 (``lstm_cell_fwd_tc``, ``lstm_cell_fwd_general``, ...).
@@ -29,7 +31,7 @@ from __future__ import annotations
 
 import ctypes
 from types import SimpleNamespace
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -41,8 +43,14 @@ LAUNCHES = {"lstm_cell_fwd": 0, "lstm_cell_bwd": 0,
             "lstm_cell_bwd_tc": 0, "lstm_cell_bwd_general": 0}
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_BT = 32          # batch rows per block, kBT in lstm_cell.cu
-_MAX_K = 256      # largest F + H, kKMax in lstm_cell.cu
+# tile shapes of the general kernels by config index (ActCfg, DxdhCfg and
+# kWK / kWM in lstm_cell.cu): the gate kernels' (batch rows, hidden units),
+# the [dx | dh] kernel's (batch rows, K columns), the weight kernel's
+# (K rows, 4H columns)
+_ACT_TILES = ((1, 8), (4, 8), (8, 8), (16, 16), (32, 32))
+_DXDH_TILES = ((4, 32), (16, 32), (64, 64))
+_WGT_TILE = (64, 64)
+_MAX_GRID_YZ = 65535  # CUDA's limit on gridDim.y and gridDim.z
 _TC_BT = 32       # batch rows per tile, kBT in lstm_cell_tc.cu
 _TC_MAX_FH = 64   # largest F and H, kMaxFH in lstm_cell_tc.cu
 _lib: Optional[SimpleNamespace] = None
@@ -58,8 +66,8 @@ def _kernels() -> SimpleNamespace:
         general = _build.load("lstm_cell")
         tc = _build.load("lstm_cell_tc")
         P, I = ctypes.c_void_p, ctypes.c_int
-        general.lstm_cell_fwd.argtypes = [I] + [P] * 11 + [I] * 4 + [P]
-        general.lstm_cell_bwd.argtypes = [I] + [P] * 18 + [I] * 4 + [P]
+        general.lstm_cell_fwd.argtypes = [I] + [P] * 11 + [I] * 6 + [P]
+        general.lstm_cell_bwd.argtypes = [I] + [P] * 18 + [I] * 7 + [P]
         tc.lstm_cell_tc_fwd.argtypes = [P] * 11 + [I] * 5 + [P]
         tc.lstm_cell_tc_bwd.argtypes = [P] * 18 + [I] * 5 + [P]
         for fn in (general.lstm_cell_fwd, general.lstm_cell_bwd,
@@ -167,6 +175,71 @@ def tc_splits(B: int, N: int, sm_count: int) -> int:
     return max(1, min(tiles, sm_count // max(N, 1)))
 
 
+class GeneralPlan(NamedTuple):
+    """Grids and tile shapes of one general-kernel call. Block (x, y) of
+    the gate kernels (forward, backward pass 1) owns agent
+    ``x // ceil(H / act_units)``, hidden units ``(x % ceil(H / act_units))
+    * act_units`` onwards and batch rows ``y * act_rows`` onwards; block
+    (x, y) of the [dx | dh] kernel owns agent ``x // ceil(K / dxdh_cols)``,
+    the K columns from ``(x % ceil(K / dxdh_cols)) * dxdh_cols`` and rows
+    from ``y * dxdh_rows``; block (n, y, z) of the weight kernel owns agent
+    n, K rows from ``y * 64`` and 4H columns from ``z * 64``."""
+    act: int                        # config index of the gate kernels
+    act_rows: int
+    act_units: int
+    act_grid: Tuple[int, int]
+    dxdh: int                       # config index of the [dx | dh] kernel
+    dxdh_rows: int
+    dxdh_cols: int
+    dxdh_grid: Tuple[int, int]
+    weight_grid: Tuple[int, int, int]
+
+
+def _pick(tiles, B: int, blocks, sm_count: int) -> int:
+    """The config with the most work a block whose grid still fills the
+    ``sm_count`` SMs, among those whose rows the batch fills (the one-row
+    or smallest tile always); else the one with the most blocks."""
+    fits = [i for i, (rows, _) in enumerate(tiles) if rows <= B] or [0]
+    for i in reversed(fits):
+        if blocks(*tiles[i]) >= sm_count:
+            return i
+    return max(fits, key=lambda i: blocks(*tiles[i]))
+
+
+def general_plan(B: int, N: int, F: int, H: int, sm_count: int) -> GeneralPlan:
+    """Tiles and grids of the general kernels (``csrc/lstm_cell.cu``) for a
+    call at these sizes on a card of ``sm_count`` SMs: for each kernel the
+    largest tile whose grid fills the card, rows no more than B (B = 1 gets
+    one-row tiles in the gate kernels)."""
+    cdiv = lambda a, b: -(-a // b)
+    K = F + H
+    act = _pick(_ACT_TILES, B,
+                lambda r, j: N * cdiv(H, j) * cdiv(B, r), sm_count)
+    dxdh = _pick(_DXDH_TILES, B,
+                 lambda r, k: N * cdiv(K, k) * cdiv(B, r), sm_count)
+    (ar, aj), (dr, dk) = _ACT_TILES[act], _DXDH_TILES[dxdh]
+    return GeneralPlan(
+        act, ar, aj, (N * cdiv(H, aj), cdiv(B, ar)),
+        dxdh, dr, dk, (N * cdiv(K, dk), cdiv(B, dr)),
+        (N, cdiv(K, _WGT_TILE[0]), cdiv(4 * H, _WGT_TILE[1])))
+
+
+def _general_args(x: torch.Tensor, F: int, H: int, tensors):
+    """(plan, vec) of a general-kernel call; raises where a grid would
+    exceed CUDA's limits. ``vec``: rows in whole 16-byte pieces (the
+    kernels' cp.async path), else element-wise copies."""
+    B, N = x.shape[:2]
+    plan = general_plan(B, N, F, H, _sm_count(x.device))
+    if max(plan.act_grid[1], plan.dxdh_grid[1], *plan.weight_grid[1:]) \
+            > _MAX_GRID_YZ:
+        raise ValueError(f"lstm cell general kernels: B={B}, F={F}, H={H} "
+                         f"need a grid dimension over {_MAX_GRID_YZ}")
+    ve = 16 // x.element_size()
+    vec = F % ve == 0 and H % ve == 0 and all(
+        t.data_ptr() % 16 == 0 for t in tensors)
+    return plan, int(vec)
+
+
 def _sm_count(device: torch.device) -> int:
     idx = device.index if device.index is not None \
         else torch.cuda.current_device()
@@ -248,9 +321,9 @@ def lstm_cell_fwd(wx, wh, b, c, h, x, done, residuals: bool = True, *,
             or b.shape != (N, 4 * H) or c.shape != (B, N, H) \
             or h.shape != (B, N, H) or done.shape != (B,):
         raise ValueError("lstm_cell_fwd: inconsistent shapes")
-    if F + H > _MAX_K:
-        raise ValueError(f"lstm_cell_fwd: F + H = {F + H} exceeds {_MAX_K}")
     variant = _variant_for(x, F, H, (x, wx, wh, b, c, h, done), _variant)
+    if variant == "general":
+        plan, vec = _general_args(x, F, H, (x, h, wx, wh))
     lib = _kernels()
     n_out = 4 if residuals else 2
     outs = _carve(torch.empty(n_out * B * N * H, dtype=x.dtype,
@@ -265,7 +338,8 @@ def lstm_cell_fwd(wx, wh, b, c, h, x, done, residuals: bool = True, *,
             splits = _splits or tc_splits(B, N, _sm_count(x.device))
             err = lib.tc.lstm_cell_tc_fwd(*ptrs, B, N, F, H, splits, stream)
         else:
-            err = lib.general.lstm_cell_fwd(code, *ptrs, B, N, F, H, stream)
+            err = lib.general.lstm_cell_fwd(code, *ptrs, B, N, F, H,
+                                            plan.act, vec, stream)
     if err != 0:
         raise RuntimeError(f"lstm_cell_fwd ({variant}) kernel launch "
                            f"failed: cudaError {err}")
@@ -293,11 +367,11 @@ def lstm_cell_bwd(wx, wh, b, x, h_in, c_in, c_new, done, dc_new, dh_new, *,
     code = _check_cuda(x, wx, wh, b, h_in, c_in, c_new, done, dc_new, dh_new)
     B, N, F = x.shape
     H = h_in.shape[-1]
-    if F + H > _MAX_K:
-        raise ValueError(f"lstm_cell_bwd: F + H = {F + H} exceeds {_MAX_K}")
     variant = _variant_for(
         x, F, H, (x, wx, wh, b, h_in, c_in, c_new, done, dc_new, dh_new),
         _variant)
+    if variant == "general":
+        plan, vec = _general_args(x, F, H, (x, h_in, wx, wh))
     lib = _kernels()
     G = 4 * H
     dx, dh, dc_prev = _carve(
@@ -313,8 +387,8 @@ def lstm_cell_bwd(wx, wh, b, x, h_in, c_in, c_new, done, dc_new, dh_new, *,
             gz, db_part = _scratch(x.device, stream, N, B, G, splits)
         else:
             gz = torch.empty((N, B, G), dtype=x.dtype, device=x.device)
-            db_part = torch.empty((N, -(-B // _BT), G), dtype=torch.float32,
-                                  device=x.device)
+            db_part = torch.empty((N, plan.act_grid[1], G),
+                                  dtype=torch.float32, device=x.device)
         ptrs = (_ptr(x), _ptr(h_in), _ptr(c_in), _ptr(c_new), _ptr(dc_new),
                 _ptr(dh_new), _ptr(done), _ptr(wx), _ptr(wh), _ptr(b),
                 _ptr(dx), _ptr(dh), _ptr(dc_prev), _ptr(gz), _ptr(db_part),
@@ -322,7 +396,8 @@ def lstm_cell_bwd(wx, wh, b, x, h_in, c_in, c_new, done, dc_new, dh_new, *,
         if variant == "tc":
             err = lib.tc.lstm_cell_tc_bwd(*ptrs, B, N, F, H, splits, stream)
         else:
-            err = lib.general.lstm_cell_bwd(code, *ptrs, B, N, F, H, stream)
+            err = lib.general.lstm_cell_bwd(code, *ptrs, B, N, F, H,
+                                            plan.act, plan.dxdh, vec, stream)
     if err != 0:
         raise RuntimeError(f"lstm_cell_bwd ({variant}) kernel launch "
                            f"failed: cudaError {err}")

@@ -50,9 +50,10 @@ def init_log(log_dir: Optional[str] = None) -> None:
 
 class MetricWriter:
     """Appends metric rows to <dir>/<name>.csv and .jsonl, and, when
-    ``tb_dir`` is given and tensorboard is importable, mirrors numeric
-    fields as TensorBoard scalars keyed on the row's ``step``. Without
-    tensorboard it writes csv and jsonl only and says so once."""
+    ``tb_dir`` is given and tensorboard is usable, mirrors numeric fields
+    as TensorBoard scalars keyed on the row's ``step``. Where tensorboard
+    is absent, or raises anything on import or construction, it writes csv
+    and jsonl only and says so once."""
 
     _told_no_tensorboard = False
 
@@ -66,13 +67,12 @@ class MetricWriter:
         if tb_dir is not None:
             try:
                 from torch.utils.tensorboard import SummaryWriter
-            except ImportError:
+                self._tb = SummaryWriter(os.path.join(tb_dir, name))
+            except Exception as e:  # absent, or fails to import or to build
                 if not MetricWriter._told_no_tensorboard:
                     MetricWriter._told_no_tensorboard = True
-                    log.info("tensorboard is not installed: metrics go to "
-                             "csv and jsonl only")
-            else:
-                self._tb = SummaryWriter(os.path.join(tb_dir, name))
+                    log.info("tensorboard is not usable (%s: %s): metrics go "
+                             "to csv and jsonl only", type(e).__name__, e)
 
     def write(self, row: Dict[str, float]) -> None:
         row = {k: (float(v) if hasattr(v, "__float__") else v)

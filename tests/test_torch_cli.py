@@ -15,6 +15,7 @@ import json
 import logging
 import os
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -157,6 +158,50 @@ def test_metric_writer_without_tensorboard_says_so_once(
     assert len(told) == 1 and told[0].levelno == logging.INFO
     assert _rows(tmp_path / "test_log.csv")[0]["loss"] == "2.0"
     assert not os.path.exists(tmp_path / "tb")
+
+
+class _BrokenTensorboard(types.ModuleType):
+    """A ``torch.utils.tensorboard`` that fails as an installed but broken
+    one does: ``import_error`` raises TypeError on import of SummaryWriter
+    (a protobuf mismatch does that), ``build_error`` raises on
+    construction."""
+
+    def __init__(self, how):
+        super().__init__("torch.utils.tensorboard")
+        self.how = how
+
+    def __getattr__(self, name):
+        if name != "SummaryWriter":
+            raise AttributeError(name)
+        if self.how == "import_error":
+            raise TypeError("Descriptors cannot be created directly")
+
+        def summary_writer(*args, **kwargs):
+            raise OSError("cannot open the event file")
+        return summary_writer
+
+
+@pytest.mark.parametrize("how", ["import_error", "build_error"])
+def test_trainer_writes_logs_when_tensorboard_is_broken(
+        tiny_ini, tmp_path, monkeypatch, caplog, how):
+    """As the JAX package's writer, the port's goes on with csv and jsonl
+    when tensorboard raises anything on import or construction, and says so
+    once: a whole Trainer run still writes its logs."""
+    monkeypatch.setitem(sys.modules, "torch.utils.tensorboard",
+                        _BrokenTensorboard(how))
+    monkeypatch.setattr(tlogging.MetricWriter, "_told_no_tensorboard", False)
+    cfg, fns = _tiny(tiny_ini)
+    with caplog.at_level(logging.INFO, logger=tlogging.log.name):
+        Trainer(fns, cfg, str(tmp_path), seed=cfg.env.seed,
+                in_train_test=True).run()
+    data = tmp_path / "data"
+    rows = _rows(data / "train_log.csv")
+    assert rows and all(float(r["step"]) > 0 for r in rows)
+    with open(data / "train_log.jsonl") as f:
+        assert len(f.readlines()) == len(rows)
+    assert _rows(data / "test_log.csv")
+    told = [r for r in caplog.records if "tensorboard" in r.getMessage()]
+    assert len(told) == 1
 
 
 def test_resolved_recipe_and_init_dir_match_jax(tmp_path):

@@ -28,6 +28,16 @@ needs_cuda = pytest.mark.skipif("not torch.cuda.is_available()",
 NAMES = ["wx", "wh", "b", "c", "h", "x"]
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """The shapes here are small, and several test processes share the
+    machine: more threads than one only fight over the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def J():
     """The JAX reference: vmapped lstm_step and the interpret-mode Pallas
@@ -240,6 +250,91 @@ def test_plain_fwd_residuals_are_masked_carry():
     assert lc.lstm_cell_fwd(wx, wh, b, c, h, x, d, residuals=False)[2] is None
 
 
+# a cell wider than the general kernel's old cap of F + H <= 256
+WIDE = dict(B=6, N=2, F=64, H=256)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 0.05)])
+def test_wide_cell_forward_matches_reference(J, dtype, tol):
+    """The twin (the card's general kernels' yardstick) at K = 320 against
+    the JAX reference cell and the interpret-mode Pallas cell."""
+    args, done = setup(**WIDE)
+    jargs = [J.jnp.asarray(a) for a in args]
+    c, h = port_step(args, done, dtype=dtype)
+    for want in (J.ref_step(*jargs, J.jnp.asarray(done)),
+                 J.pallas_step(*jargs, J.jnp.asarray(done))):
+        np.testing.assert_allclose(_np(c), np.asarray(want[0]), atol=tol,
+                                   rtol=tol if dtype == torch.bfloat16 else 0)
+        np.testing.assert_allclose(_np(h), np.asarray(want[1]), atol=tol,
+                                   rtol=tol if dtype == torch.bfloat16 else 0)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 0.05)])
+def test_wide_cell_gradients_match_reference(J, dtype, tol):
+    args, done = setup(**WIDE)
+    g = port_grads(args, done, dtype=dtype)
+    wants = [J.loss_grads(J.ref_step, args, J.jnp.asarray(done))]
+    if dtype == torch.float32:
+        wants.append(J.loss_grads(J.pallas_step, args, J.jnp.asarray(done)))
+    for want in wants:
+        for a, b, name in zip(g, want, NAMES):
+            np.testing.assert_allclose(a, b, atol=tol, rtol=tol,
+                                       err_msg=name)
+
+
+PLAN_CASES = [  # (B, N, F, H): the .ini steps, eval at B=1, the flagship
+    (32, 28, 64, 64), (32, 8, 64, 64), (1, 25, 64, 64), (1, 28, 64, 64),
+    (1, 8, 64, 64), (768, 25, 64, 64), (37, 3, 64, 256), (5, 2, 128, 1024),
+    (12, 3, 16, 16), (37, 5, 24, 40), (9, 2, 5, 7),
+]
+
+
+@pytest.mark.parametrize("B,N,F,H", PLAN_CASES)
+def test_general_plan_covers_every_output_once(B, N, F, H):
+    """Each kernel's blocks, mapped as ``GeneralPlan`` states, own every
+    (agent, row, hidden unit), (agent, row, K column) and (agent, K row, 4H
+    column) exactly once; B=1 takes one-row gate tiles."""
+    p = lc.general_plan(B, N, F, H, 132)
+    K, G = F + H, 4 * H
+    assert p.act_rows <= max(B, 1) and (B > 1 or p.act_rows == 1)
+
+    def cover(grid, tiles_x, tile_x, rows, extent):
+        seen = np.zeros((N, B, extent), np.int32)
+        for bx in range(grid[0]):
+            n, t = divmod(bx, tiles_x)
+            for by in range(grid[1]):
+                seen[n, by * rows:(by + 1) * rows,
+                     t * tile_x:(t + 1) * tile_x] += 1
+        return seen
+    assert p.act_grid[0] == N * -(-H // p.act_units)
+    assert (cover(p.act_grid, -(-H // p.act_units), p.act_units, p.act_rows,
+                  H) == 1).all()
+    assert p.dxdh_grid[0] == N * -(-K // p.dxdh_cols)
+    assert (cover(p.dxdh_grid, -(-K // p.dxdh_cols), p.dxdh_cols,
+                  p.dxdh_rows, K) == 1).all()
+    n_w, ky, mz = p.weight_grid
+    seen = np.zeros((N, K, G), np.int32)
+    for n in range(n_w):
+        for y in range(ky):
+            for z in range(mz):
+                seen[n, y * 64:(y + 1) * 64, z * 64:(z + 1) * 64] += 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("N", [8, 28])
+def test_general_plan_fills_the_card_at_b32(N):
+    """At the .ini files' B=32 (CACC N=8, Monaco N=28) every kernel's grid
+    has at least one block per SM of an H100; at B=1 the gate kernels still
+    give each agent several blocks."""
+    p = lc.general_plan(32, N, 64, 64, 132)
+    assert p.act_grid[0] * p.act_grid[1] >= 132
+    assert p.dxdh_grid[0] * p.dxdh_grid[1] >= 132
+    b1 = lc.general_plan(1, N, 64, 64, 132)
+    assert b1.act_rows == 1 and b1.act_grid == (N * 8, 1)
+
+
 # ---- the CUDA kernels against the twins (card only) ----
 
 CUDA_CASES = [  # (B, N, F, H, dtype, tol fwd, tol grads)
@@ -256,6 +351,15 @@ CUDA_CASES = [  # (B, N, F, H, dtype, tol fwd, tol grads)
     (100, 25, 64, 64, torch.bfloat16, 0.05, 0.05),
     # bf16 at a width that takes the general kernel
     (37, 5, 24, 40, torch.bfloat16, 0.05, 0.05),
+    # the general kernels' tile shapes: B=1 (eval), the Monaco .ini step,
+    # wide cells past the old F + H <= 256, and rows of no whole 16-byte
+    # pieces (element-wise copies)
+    (1, 28, 64, 64, torch.float32, 1e-5, 1e-4),
+    (32, 28, 64, 64, torch.float32, 1e-5, 1e-4),
+    (37, 3, 64, 256, torch.float32, 1e-5, 1e-4),
+    (5, 2, 128, 1024, torch.float32, 1e-5, 1e-4),
+    (37, 3, 64, 256, torch.bfloat16, 0.05, 0.05),
+    (9, 2, 5, 7, torch.float32, 1e-5, 1e-4),
 ]
 
 # (dtype, F, H) -> the kernel a CUDA call takes
@@ -269,6 +373,8 @@ VARIANT_CASES = [
     (torch.bfloat16, 64, 80, "general"),
     (torch.float32, 64, 64, "general"),    # TF32 would not hold 1e-5
     (torch.float32, 16, 16, "general"),
+    (torch.bfloat16, 64, 256, "general"),  # wider than the old F + H cap
+    (torch.float32, 64, 256, "general"),
 ]
 
 
