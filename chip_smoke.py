@@ -12,13 +12,14 @@ Phases (any failure raises, exits non-zero and prints no result line):
   3. kernels: hold each kernel against its plain PyTorch twin on the card at
      the main path's shape (B=768, N=25, F=H=64) in f32 and bf16, at the
      CACC platoon's shape (B=32, N=8), at B=1 (eval and record), at the
-     Monaco shapes (N=28: B=32 and B=1 in f32, B=768 in bf16), at ragged
+     Monaco shapes (N=28: B=32 and B=1 in f32, B=768 in bf16), at the
+     acceptance bars' train shapes (B=64 with N=8 and N=9, f32), at ragged
      shapes, at widths that take the general kernels (odd widths; cells
      wider than 256: F=64 H=256 in f32 and bf16, F=128 H=1024 in f32),
      forward and backward, the backward bitwise equal across two calls;
-     time them at the main path's, the platoon's, the B=1, the Monaco and
-     the wide f32 shapes from replays of a CUDA graph of 20 launches
-     (``ms``: inputs warm in L2; ``cold_ms``: L2 flushed before every
+     time them at the main path's, the platoon's, the B=1, the Monaco, the
+     acceptance and the wide f32 shapes from replays of a CUDA graph of 20
+     launches (``ms``: inputs warm in L2; ``cold_ms``: L2 flushed before every
      launch; ``call_ms``: the host's time per call), the general kernels in
      bf16 beside the tensor-core ones, and at each f32 shape the per-agent
      products alone through ``torch.bmm`` (``*_product_ms``);
@@ -59,7 +60,12 @@ Phases (any failure raises, exits non-zero and prints no result line):
  12. agents: the reference-style host loop with the compat ``MA2C_NC`` class
      on the platoon for two ``n_step = 10`` batches, launch counts asserted
      per call;
- 13. parallel: data-parallel training through ``make_parallel_a2c`` in
+ 13. surface: the JAX package's re-exported names from the port's
+     packages; the single-env ``policy_step`` at the flagship width
+     (grid-25, 64/64, f32) on the card, one launch, bit-equal to
+     ``policy_step_batched`` at B=1 and within 1e-5 of the CPU port;
+     ``graft_entry.entry()`` once;
+ 14. parallel: data-parallel training through ``make_parallel_a2c`` in
      worker processes (``parallel/smoke_worker.py``): the NCCL path at world
      size 1 on the flagship (B=768); two gloo ranks sharing the card, (a) a
      small f32 MA2C_NC platoon update against one process on the combined
@@ -67,7 +73,7 @@ Phases (any failure raises, exits non-zero and prints no result line):
      at a global B=768, 384 a rank (launch counts, step, finite loss and
      params bit-identical across ranks asserted); env-steps/s of 1 and 2
      ranks, the gradient all-reduce's bytes and time; ``dryrun_multichip(2)``;
- 14. (--profile) device busy share and kernel time by name over one
+ 15. (--profile) device busy share and kernel time by name over one
      flagship step, and the number of kernels in one step of each family.
 
 Output: a kernels JSON line and the card's name and power limit on lines
@@ -100,8 +106,12 @@ MONACO_768 = dict(B=768, N=28, F=64, H=64)
 # cells wider than the general kernels' old cap of F + H <= 256
 WIDE = dict(B=37, N=3, F=64, H=256)
 WIDE_1024 = dict(B=5, N=2, F=128, H=1024)
+# the acceptance bars' train steps (tests/test_torch_acceptance.py): the
+# platoon and the 3x3 grid at B=64, f32
+ACCEPT_CACC = dict(B=64, N=8, F=64, H=64)
+ACCEPT_GRID3 = dict(B=64, N=9, F=64, H=64)
 TIMED_SHAPES = ("flagship", "cacc", "eval_b1", "monaco", "monaco_b1",
-                "monaco_768", "wide")
+                "monaco_768", "wide", "accept_cacc", "accept_grid3")
 MONACO_INI = "configs/config_ma2c_nc_net.ini"
 AGENTS = ("ia2c", "ia2c_fp", "ia2c_cu", "ma2c_nc", "ma2c_cnet", "ma2c_dial")
 CACC_CONFIGS = ("configs/config_ma2c_nc_cacc_catchup.ini",
@@ -311,6 +321,8 @@ def check_kernels():
              ("monaco", MONACO, "float32", None),
              ("monaco_b1", MONACO_B1, "float32", None),
              ("monaco_768", MONACO_768, "bfloat16", None),
+             ("accept_cacc", ACCEPT_CACC, "float32", None),
+             ("accept_grid3", ACCEPT_GRID3, "float32", None),
              ("ragged", RAGGED, "float32", None),
              ("ragged", RAGGED, "bfloat16", None),
              ("ragged_wide", RAGGED_WIDE, "bfloat16", None),
@@ -1114,6 +1126,97 @@ def run_agents(card: str):
         f"{wall:.3f} s on {card}")
 
 
+def run_surface(card: str):
+    """The port's import surface (the JAX package's ``__init__`` names) and
+    the single-env ``policy_step`` at the flagship width (grid-25, 64/64,
+    f32): one general forward launch, bit-equal to ``policy_step_batched``
+    at B=1 on the card and within 1e-5 of the CPU port's ``policy_step``;
+    then ``graft_entry.entry()`` once. Returns the policy_step's counts."""
+    import numpy as np
+    import torch
+    from deeprl_network_tpu_torch.config import EnvConfig, ModelConfig
+    from deeprl_network_tpu_torch.envs import CACCEnv, Env, EnvSpec  # noqa: F401
+    from deeprl_network_tpu_torch.envs.grid import LargeGridEnv
+    from deeprl_network_tpu_torch.graft_entry import entry
+    from deeprl_network_tpu_torch.models import (  # noqa: F401
+        Carry, TF1RMSProp, a2c_loss, fc_apply, init_policy_params,
+        mask_comm_params, one_hot, policy_step, tf1_rmsprop,
+    )
+    from deeprl_network_tpu_torch.models.policies import (
+        policy_consts, policy_step_batched, tree_map,
+    )
+    from deeprl_network_tpu_torch.ops import fused_agent_lstm  # noqa: F401
+    from deeprl_network_tpu_torch.parallel import (  # noqa: F401
+        ParallelA2C, make_parallel_a2c, maybe_initialize,
+    )
+    from deeprl_network_tpu_torch.utils import Scheduler, make_schedule
+    from deeprl_network_tpu_torch.utils.rollout import make_policy_spec
+    if Scheduler("linear", 1.0, 10).get(5) != make_schedule(
+            "linear", 1.0, 10)(5):
+        raise AssertionError("surface: Scheduler.get differs")
+    env = LargeGridEnv(EnvConfig(scenario="large_grid", coop_gamma=0.9),
+                       device="cpu")
+    spec = make_policy_spec(env.spec, ModelConfig(num_fc=64, num_lstm=64),
+                            "ma2c_nc")
+    params = {"cpu": mask_comm_params(spec, init_policy_params(
+        torch.Generator().manual_seed(0), spec))}
+    params["cuda"] = tree_map(lambda t: t.cuda(), params["cpu"])
+    rng = np.random.default_rng(0)
+    n, H = spec.n_agent, spec.n_lstm
+    arr = lambda *shape: rng.standard_normal(shape).astype(np.float32)
+    fp = rng.random((n, spec.n_a_max)).astype(np.float32)
+    host = dict(c=arr(n, H) * 0.5, h=arr(n, H) * 0.5,
+                obs=arr(n, spec.n_s_max), fp=fp / fp.sum(-1, keepdims=True))
+    worst, counts = 0.0, None
+    for done in (0.0, 1.0):
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            t = {k: torch.tensor(v, device=dev) for k, v in host.items()}
+            consts = policy_consts(spec, dev)
+            args = (Carry(t["c"], t["h"]), t["obs"], t["fp"],
+                    torch.tensor(done, device=dev))
+            if dev == "cuda":
+                zero_counts()
+            outs[dev] = policy_step(spec, params[dev], *args, consts)
+            if dev == "cpu":
+                continue
+            torch.cuda.synchronize()
+            counts = expect_counts("surface policy_step", 1, 0, "general")
+            bc, blo, bv = policy_step_batched(
+                spec, params[dev], Carry(t["c"][None], t["h"][None]),
+                t["obs"][None], t["fp"][None], args[3].reshape(1), consts)
+            sc, slo, sv = outs[dev]
+            for a, b in ((sc.c, bc.c[0]), (sc.h, bc.h[0]), (slo, blo[0]),
+                         (sv, bv[0])):
+                if not torch.equal(a, b):
+                    raise AssertionError("surface: policy_step differs from "
+                                         "policy_step_batched at B=1")
+        got = [outs["cuda"][0].c, outs["cuda"][0].h, outs["cuda"][1],
+               outs["cuda"][2]]
+        want = [outs["cpu"][0].c, outs["cpu"][0].h, outs["cpu"][1],
+                outs["cpu"][2]]
+        worst = max(worst, max_err([g.cpu() for g in got], want, 1e-5,
+                                   "c,h,logits,values"))
+    fn, fargs = entry()
+    zero_counts()
+    carry, logits, values = fn(*fargs)
+    torch.cuda.synchronize()
+    expect_counts("surface entry", 1, 0, "general")
+    if (tuple(carry.h.shape) != (n, H) or tuple(logits.shape) != (
+            n, spec.n_a_max) or tuple(values.shape) != (n,)
+            or not torch.isfinite(logits).all()):
+        raise AssertionError("surface: entry() gave "
+                             f"{tuple(carry.h.shape)}, {tuple(logits.shape)}, "
+                             f"{tuple(values.shape)}")
+    log(f"surface: the JAX package's re-exported names import from the "
+        f"port; policy_step (grid-25, 64/64, f32, done 0 and 1) on the card: "
+        f"1 general forward launch, bit-equal to policy_step_batched at B=1, "
+        f"max abs diff {worst:.2e} against the CPU port; entry() gave "
+        f"{tuple(carry.h.shape)} / {tuple(logits.shape)} / "
+        f"{tuple(values.shape)} on {card}")
+    return counts
+
+
 def parallel_rate(results, T: int) -> float:
     """Global env-steps/s of a worker run over its updates after the first
     (a warm-up): the ranks wait for each other every update, so the slowest
@@ -1359,6 +1462,7 @@ def main(argv=None) -> int:
     monaco_launches = run_monaco(card)
     run_cli(card)
     run_agents(card)
+    surface_launches = run_surface(card)
     parallel_launches = run_parallel(card)
 
     sources = {"": "deeprl_network_tpu_torch/ops/csrc/lstm_cell_tc.cu",
@@ -1376,6 +1480,8 @@ def main(argv=None) -> int:
             "monaco ini" if general else "monaco b768"][base]
         n_parallel = {k: v[base] for k, v in parallel_launches.items()
                       if v.get(f"{base}_{'general' if general else 'tc'}")}
+        if general and surface_launches[base]:
+            n_parallel["surface policy_step"] = surface_launches[base]
         if n <= 0 or n_monaco <= 0 or not n_parallel:
             raise AssertionError(f"{name} was not launched on its paths")
         kernels.append(dict(

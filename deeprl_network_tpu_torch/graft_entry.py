@@ -1,8 +1,9 @@
 """Smoke entry points of the port (counterpart of ``__graft_entry__.py``):
 a single-card forward check and a multi-rank dry run.
 
-- :func:`entry` returns the flagship model's policy forward (MA2C_NC /
-  NeurComm over the 25-agent 5x5 grid, 64/64) with example args on the card.
+- :func:`entry` returns the flagship model's single-env policy forward
+  (``models/policies.policy_step``: MA2C_NC / NeurComm over the 25-agent 5x5
+  grid, 64/64) with example args on the card.
 - :func:`dryrun_multichip` runs n ranks of ONE full data-parallel training
   step (rollout, BPTT, gradient all-reduce, RMSProp) at tiny shapes with the
   flagship's levers (``sparse_comm``, ``remat``), one env a rank.
@@ -29,12 +30,15 @@ TINY_SPEC = dict(
 
 
 def entry(device="cuda"):
-    """(fn, example_args): the flagship policy forward for one env."""
+    """(fn, example_args): the flagship policy forward for ONE env instance
+    with the JAX entry's shapes (obs [N, S], carry [N, H] x2, fp [N, A],
+    done 0-dim). The params pass ``mask_comm_params`` once, here, as the
+    JAX entry's params come masked from ``init_policy_params``."""
     from deeprl_network_tpu_torch.config import EnvConfig, ModelConfig
     from deeprl_network_tpu_torch.envs.grid import LargeGridEnv
     from deeprl_network_tpu_torch.models.policies import (
-        init_carry, init_fingerprint, init_policy_params, mask_comm_params,
-        policy_consts, policy_step_batched,
+        Carry, init_fingerprint, init_policy_params, mask_comm_params,
+        policy_consts, policy_step,
     )
     from deeprl_network_tpu_torch.utils.rollout import make_policy_spec
 
@@ -44,17 +48,17 @@ def entry(device="cuda"):
                             "ma2c_nc")
     dev = env.device
     consts = policy_consts(spec, dev)
-    params = init_policy_params(torch.Generator().manual_seed(0), spec,
-                                device=dev)
-    carry = init_carry(spec, 1, device=dev)
-    fp = init_fingerprint(spec, device=dev)[None]
-    obs = torch.zeros((1, spec.n_agent, spec.n_s_max), device=dev)
-    done = torch.zeros((1,), device=dev)
+    params = mask_comm_params(
+        spec, init_policy_params(torch.Generator().manual_seed(0), spec,
+                                 device=dev), consts)
+    zeros = lambda: torch.zeros((spec.n_agent, spec.n_lstm), device=dev)
+    carry = Carry(zeros(), zeros())
+    fp = init_fingerprint(spec, device=dev)
+    obs = torch.zeros((spec.n_agent, spec.n_s_max), device=dev)
+    done = torch.zeros((), device=dev)
 
     def fn(params, carry, obs, fp, done):
-        return policy_step_batched(spec, mask_comm_params(spec, params,
-                                                          consts),
-                                   carry, obs, fp, done, consts)
+        return policy_step(spec, params, carry, obs, fp, done, consts)
 
     return fn, (params, carry, obs, fp, done)
 

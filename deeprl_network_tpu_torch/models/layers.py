@@ -55,6 +55,10 @@ def fc_init(n_in: int, n_out: int, scale: float = 1.0,
     return FCParams(w, b)
 
 
+def fc_apply(p: FCParams, x: torch.Tensor) -> torch.Tensor:
+    return x @ p.w + p.b
+
+
 class LSTMParams(NamedTuple):
     wx: torch.Tensor  # [..., n_in, 4*n_h]
     wh: torch.Tensor  # [..., n_h, 4*n_h]
@@ -94,6 +98,12 @@ def lstm_step(p: LSTMParams, carry: Tuple[torch.Tensor, torch.Tensor],
     c_new = f * c + i * u
     h_new = o * torch.tanh(c_new)
     return (c_new, h_new), h_new
+
+
+def one_hot(x: torch.Tensor, n: int, dtype=torch.float32) -> torch.Tensor:
+    """[..., n] one-hot of integer ``x``; an index outside [0, n) gives a
+    zero row, as ``jax.nn.one_hot`` does (``F.one_hot`` raises)."""
+    return (x[..., None] == torch.arange(n, device=x.device)).to(dtype)
 
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:

@@ -332,6 +332,25 @@ def policy_step_batched(spec: PolicySpec, params: PolicyParams,
     return Carry(c2, h2), logits, value
 
 
+def policy_step(spec: PolicySpec, params: PolicyParams, carry: Carry,
+                obs: torch.Tensor, fp: torch.Tensor, done: torch.Tensor,
+                consts: Optional[PolicyConsts] = None
+                ) -> Tuple[Carry, torch.Tensor, torch.Tensor]:
+    """One control step for all N agents of ONE env instance, the JAX
+    package's single-env API: :func:`policy_step_batched` at B = 1 (on a
+    CUDA tensor the cell is the same single kernel launch).
+
+    carry: (c, h) each [N, H]; obs [N, S]; fp [N, A]; done a 0-dim tensor.
+    Returns (new carry [N, H] x2, masked logits [N, A], values [N]).
+    """
+    done = torch.as_tensor(done, dtype=carry.h.dtype,
+                           device=carry.h.device).reshape(1)
+    new, logits, values = policy_step_batched(
+        spec, params, Carry(carry.c[None], carry.h[None]), obs[None],
+        fp[None], done, consts)
+    return Carry(new.c[0], new.h[0]), logits[0], values[0]
+
+
 # ---- IA2C_CU weight consensus ----
 
 def consensus_matrix(neighbor_mask: np.ndarray) -> np.ndarray:

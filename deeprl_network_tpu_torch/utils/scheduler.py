@@ -32,3 +32,15 @@ def make_schedule(kind: str, init: float, total_step: int,
 
         return sched
     raise ValueError(f"unknown schedule {kind}")
+
+
+class Scheduler:
+    """Host-side mirror of the reference Scheduler API: ``get(step)`` is
+    the schedule's float32 value at ``step``."""
+
+    def __init__(self, kind: str, init: float, total_step: int,
+                 min_value: float = 0.0, ratio: float = 1.0):
+        self._fn = make_schedule(kind, init, total_step, min_value, ratio)
+
+    def get(self, step) -> float:
+        return self._fn(step)

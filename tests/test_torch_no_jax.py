@@ -60,6 +60,16 @@ def test_importing_the_port_loads_no_jax():
         "import deeprl_network_tpu_torch.models.agents\n"
         "import deeprl_network_tpu_torch.parallel.smoke_worker\n"
         "import deeprl_network_tpu_torch.graft_entry\n"
+        "from deeprl_network_tpu_torch.models import (\n"
+        "    a2c_loss, fc_apply, one_hot, policy_step, tf1_rmsprop,\n"
+        "    TF1RMSProp)\n"
+        "from deeprl_network_tpu_torch.utils import Scheduler, make_schedule\n"
+        "from deeprl_network_tpu_torch.ops import fused_agent_lstm\n"
+        "from deeprl_network_tpu_torch.envs import Env, EnvSpec, CACCEnv\n"
+        "from deeprl_network_tpu_torch.parallel import (\n"
+        "    make_parallel_a2c, ParallelA2C, maybe_initialize)\n"
+        "from deeprl_network_tpu_torch.ops import lstm_cell\n"
+        "assert lstm_cell._lib is None, 'importing the ops loaded a kernel'\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         f"{BANNED!r}]\n"
         "assert not bad, bad\n")

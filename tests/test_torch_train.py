@@ -106,9 +106,11 @@ def _run_both(jfns, jts, tfns, tts, n_updates=2):
         yield jts, jm, tts, tm
 
 
-def _assert_updates_match(jfns, jts, tfns, tts, metrics=METRICS):
+def _assert_updates_match(jfns, jts, tfns, tts, metrics=METRICS,
+                          episode_len=12.0):
     """Two updates: the metrics at rtol 1e-4 (and the same set of them),
-    every param at atol 1e-5; the second update crosses an episode end."""
+    every param at atol 1e-5; the second update crosses an episode end
+    (of ``episode_len`` steps)."""
     for jts, jm, tts, tm in _run_both(jfns, jts, tfns, tts):
         assert tm.keys() == jm.keys()
         for k in metrics:
@@ -119,7 +121,7 @@ def _assert_updates_match(jfns, jts, tfns, tts, metrics=METRICS):
         assert len(jl) == len(tl)
         for a, b in zip(tl, jl):
             np.testing.assert_allclose(a, b, atol=1e-5)
-    assert float(tm["episode_len"]) == 12.0
+    assert float(tm["episode_len"]) == episode_len
     return jts, tts
 
 
