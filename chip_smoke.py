@@ -30,26 +30,33 @@ Phases (any failure raises, exits non-zero and prints no result line):
      width (B=768 envs, T=120, bf16 with f32 masters, sparse_comm, remat)
      through ``make_a2c``: a warm-up step and 3 timed steps, with the kernel
      launch counts read around them;
-  6. families: the same step for each of the six agents (a warm-up and 2
+  6. bench: the throughput tools' twins, ``deeprl_network_tpu_torch/bench.py``
+     (the baseline host loop, and the flagship over a 15 s window after one
+     warm-up update: the JSON line with the prefix ``bench:``, the window's
+     launches asserted, (updates + 1) x (241 + 120) ``tc``) and
+     ``scripts/profile_step.py``'s variants ``full_ma2c_nc``, ``ia2c`` and
+     ``env_only`` at the flagship levers (5 timed calls each), with the
+     kernels of one call;
+  7. families: the same step for each of the six agents (a warm-up and 2
      timed steps each), launch counts asserted; for IA2C_CU also that the
      weight consensus ran;
-  7. replay: a small f32 MA2C_NC update with ``fused_grad=False`` against
+  8. replay: a small f32 MA2C_NC update with ``fused_grad=False`` against
      the fused update from the same state and noise, launch counts asserted;
-  8. cacc: the CACC platoon from ``configs/config_ma2c_nc_cacc_catchup.ini``
+  9. cacc: the CACC platoon from ``configs/config_ma2c_nc_cacc_catchup.ini``
      and ``configs/config_ia2c_cu_cacc_slowdown.ini`` at the files' own
      sizes (3 train steps each, launch counts asserted), and two small f32
      updates on the card against the CPU port;
-  9. eval/record: ``eval_episode`` (sampled, greedy) and ``record_episode``
+ 10. eval/record: ``eval_episode`` (sampled, greedy) and ``record_episode``
      (greedy, controller) on the grid and on the platoon with the params
      trained above, on the card against the same calls on the CPU with the
      same noise, and one whole sampled episode each on the card;
- 10. monaco: Monaco-28 MA2C_NC from ``configs/config_ma2c_nc_net.ini``: two
+ 11. monaco: Monaco-28 MA2C_NC from ``configs/config_ma2c_nc_net.ini``: two
      small f32 updates on the card against the CPU port; the file's own step
      (N=28, B=32, T=120, 64/64, f32: a warm-up and 3 timed steps, launch
      counts asserted, every sampled action inside its node's action count);
      the same env at the flagship's settings (B=768, bf16, sparse_comm,
      remat: a warm-up and 2 timed steps);
- 11. cli: in a temporary directory, the port's CLI on a copy of that file
+ 12. cli: in a temporary directory, the port's CLI on a copy of that file
      with ``total_step`` cut to 5 updates: ``train`` with ``in_train_test``
      (log rows, a test row, the config snapshot, checkpoints), ``train
      --restore`` with a doubled budget, ``evaluate`` from the checkpoint and
@@ -57,15 +64,15 @@ Phases (any failure raises, exits non-zero and prints no result line):
      ``Trainer`` run with the time inside and outside ``train_step`` read
      apart, the restored params held bit-equal to the trainer's final ones,
      and the checkpoint's size, save and restore times;
- 12. agents: the reference-style host loop with the compat ``MA2C_NC`` class
+ 13. agents: the reference-style host loop with the compat ``MA2C_NC`` class
      on the platoon for two ``n_step = 10`` batches, launch counts asserted
      per call;
- 13. surface: the JAX package's re-exported names from the port's
+ 14. surface: the JAX package's re-exported names from the port's
      packages; the single-env ``policy_step`` at the flagship width
      (grid-25, 64/64, f32) on the card, one launch, bit-equal to
      ``policy_step_batched`` at B=1 and within 1e-5 of the CPU port;
      ``graft_entry.entry()`` once;
- 14. parallel: data-parallel training through ``make_parallel_a2c`` in
+ 15. parallel: data-parallel training through ``make_parallel_a2c`` in
      worker processes (``parallel/smoke_worker.py``): the NCCL path at world
      size 1 on the flagship (B=768); two gloo ranks sharing the card, (a) a
      small f32 MA2C_NC platoon update against one process on the combined
@@ -73,7 +80,7 @@ Phases (any failure raises, exits non-zero and prints no result line):
      at a global B=768, 384 a rank (launch counts, step, finite loss and
      params bit-identical across ranks asserted); env-steps/s of 1 and 2
      ranks, the gradient all-reduce's bytes and time; ``dryrun_multichip(2)``;
- 15. (--profile) device busy share and kernel time by name over one
+ 16. (--profile) device busy share and kernel time by name over one
      flagship step, and the number of kernels in one step of each family.
 
 Output: a kernels JSON line and the card's name and power limit on lines
@@ -621,20 +628,42 @@ def run_main_path(card: str, n_timed: int = 3):
     return launches, sps, fns, ts
 
 
-def count_step_kernels(fns, ts):
-    """(kernels, their summed device seconds) of one ``train_step`` under
-    torch.profiler."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fns.train_step(ts)
-        torch.cuda.synchronize()
-    evs = [ev for ev in prof.key_averages()
-           if ev.device_type == DeviceType.CUDA and ev.self_device_time_total]
-    return (sum(ev.count for ev in evs),
-            sum(ev.self_device_time_total for ev in evs) / 1e6)
+def run_bench(card: str):
+    """The throughput tools' twins: ``bench.py``'s measure at the flagship
+    over a 15 s window, its launch counts asserted, and ``profile_step``'s
+    three variants at the flagship levers with the kernels of one call
+    each; returns the window's launch counts."""
+    import math
+    from deeprl_network_tpu_torch import bench
+    from deeprl_network_tpu_torch.scripts import profile_step
+    t_phase = time.perf_counter()
+    baseline = bench.measure_baseline()
+    log(f"bench: baseline (reference-style host loop) {baseline:.1f} "
+        f"env-steps/s")
+    zero_counts()
+    r = bench.measure(seconds_budget=15, **bench.FLAGSHIP)
+    # the window's updates and the excluded warm-up, each 2T+1 forward and
+    # T backward tensor-core launches
+    n = r.updates + 1
+    launches = expect_counts("bench", n * 241, n * 120, "tc")
+    if not (r.env_steps_per_s > baseline and math.isfinite(r.loss)):
+        raise AssertionError(f"bench: rate {r.env_steps_per_s} against the "
+                             f"baseline's {baseline}, loss {r.loss}")
+    log(f"bench: {r.updates} updates in {r.window_s:.3f} s after a "
+        f"{r.warmup_s:.3f} s warm-up (init_state {r.init_s:.3f} s); chunks "
+        f"of {bench.CHUNK} {json.dumps([round(t, 3) for t in r.chunk_s])} s "
+        f"on {card}")
+    log("bench: " + bench.result_line(r.env_steps_per_s, baseline))
+    res, kernels = profile_step.run(num_envs=768, dtype="bfloat16",
+                                    sparse_comm=True, remat=True, n=5)
+    for name, dt in res.items():
+        n_k, k_s = kernels[name]
+        log(f"bench profile_step {name}: {dt * 1e3:.2f} ms a call, {n_k} "
+            f"kernels a call, {k_s * 1e3:.2f} ms of kernel time (busy share "
+            f"{k_s / dt:.4f}; B=768, T=120, bf16, sparse_comm, remat) on "
+            f"{card}")
+    log(f"bench: phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def agent_spread(params) -> float:
@@ -673,8 +702,11 @@ def run_families(card: str, profile: bool, n_timed: int = 2):
             raise AssertionError(f"{what}: spread between agents "
                                  f"{spread0} -> {spread} without consensus")
         if profile:
+            from deeprl_network_tpu_torch.scripts.profile_step import (
+                count_kernels,
+            )
             line["kernels_per_step"], line["kernel_s_per_step"] = \
-                count_step_kernels(fns, ts)
+                count_kernels(fns.train_step, ts)
         log("families " + json.dumps(line))
         del fns, ts
         torch.cuda.empty_cache()
@@ -1251,7 +1283,7 @@ def check_rank_results(what, results, n_updates, fwd, bwd, variant, T):
     return results[0]["launches"]
 
 
-def run_parallel(card: str):
+def run_other(card: str):
     """Data-parallel training in worker processes on the one card: the NCCL
     path at world size 1, two gloo ranks against one process on the combined
     batch, the flagship at 2 ranks, and the dry run. Returns the launch
@@ -1437,6 +1469,7 @@ def main(argv=None) -> int:
     step_s = 120 * 768 / sps
     if args.profile:
         profile_step(fns, ts, step_s)
+    bench_launches = run_bench(card)
     grid_params = ts.params
     del ts
     run_families(card, args.profile)
@@ -1463,7 +1496,7 @@ def main(argv=None) -> int:
     run_cli(card)
     run_agents(card)
     surface_launches = run_surface(card)
-    parallel_launches = run_parallel(card)
+    parallel_launches = run_other(card)
 
     sources = {"": "deeprl_network_tpu_torch/ops/csrc/lstm_cell_tc.cu",
                "_general": "deeprl_network_tpu_torch/ops/csrc/lstm_cell.cu"}
@@ -1478,11 +1511,13 @@ def main(argv=None) -> int:
         n = (cacc_launches if general else launches)[name]
         n_monaco = monaco_launches[
             "monaco ini" if general else "monaco b768"][base]
-        n_parallel = {k: v[base] for k, v in parallel_launches.items()
+        n_other = {k: v[base] for k, v in parallel_launches.items()
                       if v.get(f"{base}_{'general' if general else 'tc'}")}
+        if not general:
+            n_other["bench"] = bench_launches[base]
         if general and surface_launches[base]:
-            n_parallel["surface policy_step"] = surface_launches[base]
-        if n <= 0 or n_monaco <= 0 or not n_parallel:
+            n_other["surface policy_step"] = surface_launches[base]
+        if n <= 0 or n_monaco <= 0 or not n_other:
             raise AssertionError(f"{name} was not launched on its paths")
         kernels.append(dict(
             name=name, route="cuda", source=sources[name[len(base):]],
@@ -1493,7 +1528,7 @@ def main(argv=None) -> int:
             launches_by_path={
                 "cacc ini" if general else "flagship": n,
                 "monaco ini" if general else "monaco b768": n_monaco,
-                **n_parallel}))
+                **n_other}))
     log(f"total: {time.perf_counter() - t_start:.1f} s; "
         f"throughput {sps:.1f} env-steps/s on {card}")
     print(json.dumps({"kernels": kernels}))

@@ -60,6 +60,9 @@ def test_importing_the_port_loads_no_jax():
         "import deeprl_network_tpu_torch.models.agents\n"
         "import deeprl_network_tpu_torch.parallel.smoke_worker\n"
         "import deeprl_network_tpu_torch.graft_entry\n"
+        "import deeprl_network_tpu_torch.bench\n"
+        "import deeprl_network_tpu_torch.scripts.profile_step\n"
+        "import deeprl_network_tpu_torch.scripts.bench_variants\n"
         "from deeprl_network_tpu_torch.models import (\n"
         "    a2c_loss, fc_apply, one_hot, policy_step, tf1_rmsprop,\n"
         "    TF1RMSProp)\n"
@@ -103,6 +106,14 @@ def test_entry_points_raise_without_a_card():
                 ["evaluate", "--config-dir", ini, "--naive"]):
         with pytest.raises(RuntimeError, match="cuda"):
             main(["--base-dir", os.path.join(ROOT, "no_such_run")] + cmd)
+    from deeprl_network_tpu_torch.bench import measure_gpu
+    from deeprl_network_tpu_torch.scripts import bench_variants, profile_step
+    with pytest.raises(RuntimeError, match="cuda"):
+        measure_gpu()
+    with pytest.raises(RuntimeError, match="cuda"):
+        profile_step.main([])
+    with pytest.raises(RuntimeError, match="cuda"):
+        bench_variants.main(["--variants", "bf16"])
     for name in ("IA2C", "IA2C_FP", "IA2C_CU", "MA2C_NC", "MA2C_CNET",
                  "MA2C_DIAL"):
         with pytest.raises(RuntimeError, match="cuda"):
