@@ -64,15 +64,24 @@ Phases (any failure raises, exits non-zero and prints no result line):
      ``Trainer`` run with the time inside and outside ``train_step`` read
      apart, the restored params held bit-equal to the trainer's final ones,
      and the checkpoint's size, save and restore times;
- 13. agents: the reference-style host loop with the compat ``MA2C_NC`` class
+ 13. scripts: the learning and evaluation harnesses
+     (``deeprl_network_tpu_torch/scripts/``): ``train_atsc.greedy_returns``
+     on the 5x5 grid, every form of the hand-controller sweep on seeds
+     10000-10002 at 720 steps, each form within 1e-5 of the CPU port over
+     120 steps and ``hyst_queue_d3`` within 1e-4 of the JAX row
+     (-140,360.48); ``train_cacc_families`` (MA2C_DIAL, slow-down) and
+     ``train_atsc`` (3x3 grid, ``--ckpt``) for 2 updates at B=8 with their
+     final evals, launch counts asserted, every row's keys those of the JAX
+     repo's ``scripts/``, the checkpoint restored;
+ 14. agents: the reference-style host loop with the compat ``MA2C_NC`` class
      on the platoon for two ``n_step = 10`` batches, launch counts asserted
      per call;
- 14. surface: the JAX package's re-exported names from the port's
+ 15. surface: the JAX package's re-exported names from the port's
      packages; the single-env ``policy_step`` at the flagship width
      (grid-25, 64/64, f32) on the card, one launch, bit-equal to
      ``policy_step_batched`` at B=1 and within 1e-5 of the CPU port;
      ``graft_entry.entry()`` once;
- 15. parallel: data-parallel training through ``make_parallel_a2c`` in
+ 16. parallel: data-parallel training through ``make_parallel_a2c`` in
      worker processes (``parallel/smoke_worker.py``): the NCCL path at world
      size 1 on the flagship (B=768); two gloo ranks sharing the card, (a) a
      small f32 MA2C_NC platoon update against one process on the combined
@@ -80,7 +89,7 @@ Phases (any failure raises, exits non-zero and prints no result line):
      at a global B=768, 384 a rank (launch counts, step, finite loss and
      params bit-identical across ranks asserted); env-steps/s of 1 and 2
      ranks, the gradient all-reduce's bytes and time; ``dryrun_multichip(2)``;
- 16. (--profile) device busy share and kernel time by name over one
+ 17. (--profile) device busy share and kernel time by name over one
      flagship step, and the number of kernels in one step of each family.
 
 Output: a kernels JSON line and the card's name and power limit on lines
@@ -1102,6 +1111,115 @@ def run_cli(card: str):
             "restored_equals_final_state": True, "card": card}))
 
 
+GRID_BAR = ("hyst_queue_d3", -140360.484375)  # results/grid_families_r3.jsonl
+
+
+def run_scripts(card: str):
+    """The learning and evaluation harnesses (``deeprl_network_tpu_torch/
+    scripts/``): the hand-controller sweep on the 5x5 grid at 720 steps
+    (each form held to the CPU port over 120 steps, the grid's bar to the
+    JAX row), then ``train_cacc_families`` (MA2C_DIAL) and ``train_atsc``
+    (3x3 grid, with ``--ckpt``) for 2 updates at B=8, their rows' keys held
+    to the JAX scripts' and their launches counted; returns those
+    counts."""
+    import numpy as np
+    import torch
+    from deeprl_network_tpu_torch.config import ModelConfig, TrainConfig
+    from deeprl_network_tpu_torch.scripts import (
+        train_atsc, train_cacc_families,
+    )
+    from deeprl_network_tpu_torch.scripts._harness import check_rows
+    from deeprl_network_tpu_torch.utils.checkpoint import CheckpointManager
+    from deeprl_network_tpu_torch.utils.rollout import make_a2c
+    root = os.path.dirname(os.path.abspath(__file__))
+    t_phase = time.perf_counter()
+    seeds = train_atsc.EVAL_SEEDS
+
+    def grid(device):
+        return train_atsc.build_env("grid", "ma2c_nc", 8.0, 10,
+                                    device=device)[0]
+
+    zero_counts()
+    t0 = time.perf_counter()
+    sweep = train_atsc.greedy_returns(grid("cuda"), seeds, 720)
+    sweep_s = time.perf_counter() - t0
+    expect_counts("scripts greedy_returns", 0, 0, "general")
+    head_gpu = train_atsc.greedy_returns(grid("cuda"), seeds, 120)
+    head_cpu = train_atsc.greedy_returns(grid("cpu"), seeds, 120)
+    for form, rets in head_cpu.items():
+        for a, b in zip(head_gpu[form], rets):
+            if not abs(a - b) <= 1e-5 * abs(b):
+                raise AssertionError(f"scripts greedy_returns {form}: "
+                                     f"{a} on the card vs {b} on the CPU "
+                                     "over 120 steps")
+    form, want = GRID_BAR
+    got = float(np.mean(sweep[form]))
+    if not abs(got - want) <= 1e-4 * abs(want):
+        raise AssertionError(f"scripts greedy_returns {form}: {got} vs the "
+                             f"JAX row {want}")
+    log("scripts greedy_returns 5x5 " + json.dumps({
+        "means": {k: float(np.mean(v)) for k, v in sweep.items()},
+        "seconds": sweep_s, "card": card}))
+
+    def jsonl(path):
+        with open(path) as f:
+            return [json.loads(line) for line in f]
+
+    B, T = 8, 120
+    steps = 2 * T * B
+    with tempfile.TemporaryDirectory() as d:
+        out = os.path.join(d, "cacc.jsonl")
+        zero_counts()
+        t0 = time.perf_counter()
+        train_cacc_families.main(
+            ["--agents", "ma2c_dial", "--seeds", "0", "--steps", str(steps),
+             "--num-envs", str(B), "--out", out])
+        torch.cuda.synchronize()
+        cacc_s = time.perf_counter() - t0
+        # 2 updates, then 3 sampled eval episodes of 600 steps
+        launches = {"scripts train_cacc_families": expect_counts(
+            "scripts train_cacc_families", 2 * (T + 1) + 3 * 600, 2 * T,
+            "general")}
+        rows = jsonl(out)
+        check_rows("train_cacc_families", rows,
+                   os.path.join(root, "scripts", "train_cacc_families.py"))
+        final = rows[-1]
+        if not (final.get("final") and all(np.isfinite(
+                [final["eval_return"], final["eval_episode_len"]]))):
+            raise AssertionError(f"scripts train_cacc_families: {final}")
+
+        out, ckpt = os.path.join(d, "atsc.jsonl"), os.path.join(d, "ckpt")
+        zero_counts()
+        t0 = time.perf_counter()
+        train_atsc.main(["--grid-size", "3", "--steps", str(steps),
+                         "--num-envs", str(B), "--out", out, "--ckpt", ckpt])
+        torch.cuda.synchronize()
+        atsc_s = time.perf_counter() - t0
+        # 2 updates, then 3 sampled and 3 argmax eval episodes of 720 steps
+        launches["scripts train_atsc"] = expect_counts(
+            "scripts train_atsc", 2 * (T + 1) + 6 * 720, 2 * T, "general")
+        rows = jsonl(out)
+        check_rows("train_atsc", rows,
+                   os.path.join(root, "scripts", "train_atsc.py"))
+        env3, _ = train_atsc.build_env("grid", "ma2c_nc", 8.0, 10,
+                                       grid_size=3, device="cuda")
+        fns = make_a2c(env3, ModelConfig(batch_size=T, num_envs=B),
+                       TrainConfig(total_step=steps), agent="ma2c_nc")
+        like = fns.init_state(1)
+        back = CheckpointManager(os.path.join(ckpt, "seed0")).restore(like)
+        if back.step != steps or back.params.w_obs.w.device.type != "cuda" \
+                or torch.equal(back.params.w_obs.w, like.params.w_obs.w):
+            raise AssertionError("scripts train_atsc: --ckpt did not "
+                                 "restore the trained state")
+        final = rows[-1]
+    log("scripts harnesses " + json.dumps({
+        "train_cacc_families_s": cacc_s, "train_atsc_s": atsc_s,
+        "train_atsc_final": {k: final[k] for k in (
+            "mean", "mean_argmax", "baseline_best", "beats_greedy")},
+        "phase_s": time.perf_counter() - t_phase, "card": card}))
+    return launches
+
+
 def run_agents(card: str):
     """The reference-style host loop (``tests/test_agents_compat.py``) with
     the compat ``MA2C_NC`` class on the platoon, on the card: one forward
@@ -1494,6 +1612,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     monaco_launches = run_monaco(card)
     run_cli(card)
+    scripts_launches = run_scripts(card)
     run_agents(card)
     surface_launches = run_surface(card)
     parallel_launches = run_other(card)
@@ -1517,6 +1636,8 @@ def main(argv=None) -> int:
             n_other["bench"] = bench_launches[base]
         if general and surface_launches[base]:
             n_other["surface policy_step"] = surface_launches[base]
+        if general:
+            n_other.update({k: v[base] for k, v in scripts_launches.items()})
         if n <= 0 or n_monaco <= 0 or not n_other:
             raise AssertionError(f"{name} was not launched on its paths")
         kernels.append(dict(

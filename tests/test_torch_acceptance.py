@@ -38,6 +38,7 @@ import torch
 
 from deeprl_network_tpu_torch.config import EnvConfig, ModelConfig, TrainConfig
 from deeprl_network_tpu_torch.envs.network import TrafficNetworkEnv
+from deeprl_network_tpu_torch.scripts.train_atsc import greedy_returns
 from deeprl_network_tpu_torch.utils.checkpoint import CheckpointManager
 from deeprl_network_tpu_torch.utils.rollout import make_a2c
 
@@ -142,19 +143,6 @@ def _small_grid_env():
                              DEVICE), cfg
 
 
-@torch.no_grad()
-def _greedy_return(env, horizon, on="queue", delta=0.0):
-    """Return of the greedy controller over ``horizon`` steps of one env
-    (the grid's reset draws nothing, so no seed enters)."""
-    state, _ = env.reset(1, torch.Generator(device=env.device).manual_seed(0))
-    total = torch.zeros((), device=env.device)
-    for _ in range(horizon):
-        a = env.greedy_action(state, on=on, delta=delta)
-        state, _, r, _, _ = env.step(state, a)
-        total = total + r.sum()
-    return float(total)
-
-
 @slow
 @needs_cuda
 def test_learned_beats_greedy_small_grid(out_dir):
@@ -164,8 +152,9 @@ def test_learned_beats_greedy_small_grid(out_dir):
     eval at held-out seeds 10000-10002, as in the JAX test."""
     env, cfg = _small_grid_env()
     horizon = env.episode_steps
-    greedy = max(_greedy_return(env, horizon, "queue"),
-                 _greedy_return(env, horizon, "wave"))
+    # the grid's reset draws nothing, so one seed stands for all
+    sweep = greedy_returns(env, (0,), horizon)
+    greedy = max(sweep["queue"][0], sweep["wave"][0])
 
     mcfg = ModelConfig(batch_size=120, num_envs=64, lr_init=2.5e-3,
                        lr_decay="linear", entropy_coef=0.003,

@@ -38,12 +38,12 @@ from deeprl_network_tpu_torch.config import (
 from deeprl_network_tpu_torch.envs.cacc import CACCEnv
 from deeprl_network_tpu_torch.envs.grid import build_grid_topology
 from deeprl_network_tpu_torch.envs.network import TrafficNetworkEnv
+from deeprl_network_tpu_torch.scripts.train_atsc import greedy_returns
 from deeprl_network_tpu_torch.utils.convert import params_from_jax
 from deeprl_network_tpu_torch.utils.rollout import make_a2c
 from test_acceptance import (
     _greedy_return as jgreedy_return, _small_grid_env as jsmall_grid_env,
 )
-from test_torch_acceptance import _greedy_return
 from test_torch_cacc import _to_port
 from test_torch_train import METRICS, _assert_updates_match
 
@@ -121,6 +121,6 @@ def test_small_grid_greedy_returns_match_jax(on):
                                                  size=3), device="cpu")
     assert tenv.episode_steps == jenv.episode_steps == 720
     want = jgreedy_return(jenv, 60, on)
-    got = _greedy_return(tenv, 60, on)
+    got = greedy_returns(tenv, (0,), 60)[on][0]
     assert got < 0
     np.testing.assert_allclose(got, want, rtol=1e-5)

@@ -3,6 +3,7 @@
 JAX, and its entry points refuse to fall back to the CPU."""
 
 import ast
+import importlib
 import os
 import subprocess
 import sys
@@ -13,6 +14,13 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "deeprl_network_tpu_torch")
 BANNED = ("jax", "jaxlib", "flax", "optax", "orbax", "deeprl_network_tpu")
+# the JAX repo's root scripts/, which the port's harnesses replace
+ROOT_SCRIPTS = {"scripts"} | {
+    f[:-3] for f in os.listdir(os.path.join(ROOT, "scripts"))
+    if f.endswith(".py")}
+HARNESSES = ("train_atsc", "train_atsc_families", "ladder_atsc", "grid_demo",
+             "train_cacc_families", "validate_learning", "slowdown_demo",
+             "cacc_reward_decompose")
 
 
 def _port_files():
@@ -25,13 +33,16 @@ def _port_files():
 
 def _banned(module: str) -> bool:
     top = module.split(".")[0]
-    return top in BANNED  # "deeprl_network_tpu_torch" is its own name
+    # "deeprl_network_tpu_torch" is its own name
+    return top in BANNED or top in ROOT_SCRIPTS
 
 
 def test_no_jax_imports_in_port_sources():
     offenders = []
     files = list(_port_files())
     assert len(files) > 10
+    for name in HARNESSES:
+        assert os.path.join(PORT, "scripts", f"{name}.py") in files, name
     for path in files:
         with open(path) as fh:
             tree = ast.parse(fh.read(), path)
@@ -63,6 +74,8 @@ def test_importing_the_port_loads_no_jax():
         "import deeprl_network_tpu_torch.bench\n"
         "import deeprl_network_tpu_torch.scripts.profile_step\n"
         "import deeprl_network_tpu_torch.scripts.bench_variants\n"
+        + "".join(f"import deeprl_network_tpu_torch.scripts.{name}\n"
+                  for name in HARNESSES) +
         "from deeprl_network_tpu_torch.models import (\n"
         "    a2c_loss, fc_apply, one_hot, policy_step, tf1_rmsprop,\n"
         "    TF1RMSProp)\n"
@@ -114,6 +127,11 @@ def test_entry_points_raise_without_a_card():
         profile_step.main([])
     with pytest.raises(RuntimeError, match="cuda"):
         bench_variants.main(["--variants", "bf16"])
+    for name in HARNESSES:
+        mod = importlib.import_module(f"deeprl_network_tpu_torch.scripts."
+                                      f"{name}")
+        with pytest.raises(RuntimeError, match="cuda"):
+            mod.main([])
     for name in ("IA2C", "IA2C_FP", "IA2C_CU", "MA2C_NC", "MA2C_CNET",
                  "MA2C_DIAL"):
         with pytest.raises(RuntimeError, match="cuda"):
