@@ -23,40 +23,52 @@ Phases (any failure raises, exits non-zero and prints no result line):
      launch; ``call_ms``: the host's time per call), the general kernels in
      bf16 beside the tensor-core ones, and at each f32 shape the per-agent
      products alone through ``torch.bmm`` (``*_product_ms``);
-  4. reference: a small f32 train step on the card against the same step on
+  4. env kernel: the ATSC env step (``ops/csrc/network_env.cu``) against its
+     plain twin on the card in lockstep (every step from the kernel's state,
+     the same actions and reset draws) at 1e-5: the 5x5 grid at B=768 over
+     one episode and a reset, the 3x3 grid at B=64, Monaco-28 at B=32 (an
+     episode and a reset) and B=768, B=1 unwrapped, the queue and phase obs
+     channels with the hybrid reward, ``init_density > 0``, and a rank's 384
+     rows of 768; the twin's free run printed beside it; times of the grid
+     and Monaco at B=768, 32 and 1 from graph replays (warm and cold), the
+     host's time a call and the twin's, and the bound;
+  5. reference: a small f32 train step on the card against the same step on
      the CPU (plain twins, held against the JAX package by the CPU tests),
      and the same at num_fc=64, num_lstm=256 (a cell wider than 256);
-  5. main path: the flagship MA2C_NC train step on the 5x5 grid at full
+  6. main path: the flagship MA2C_NC train step on the 5x5 grid at full
      width (B=768 envs, T=120, bf16 with f32 masters, sparse_comm, remat)
      through ``make_a2c``: a warm-up step and 3 timed steps, with the kernel
-     launch counts read around them;
-  6. bench: the throughput tools' twins, ``deeprl_network_tpu_torch/bench.py``
+     launch counts read around them (from here on every phase asserts the
+     env kernel's launches beside the cell's: one a control step of an ATSC
+     env, T an update, none on the platoon);
+  7. bench: the throughput tools' twins, ``deeprl_network_tpu_torch/bench.py``
      (the baseline host loop, and the flagship over a 15 s window after one
      warm-up update: the JSON line with the prefix ``bench:``, the window's
-     launches asserted, (updates + 1) x (241 + 120) ``tc``) and
+     launches asserted, (updates + 1) x (241 + 120) ``tc`` and 120 env
+     steps) and
      ``scripts/profile_step.py``'s variants ``full_ma2c_nc``, ``ia2c`` and
      ``env_only`` at the flagship levers (5 timed calls each), with the
      kernels of one call;
-  7. families: the same step for each of the six agents (a warm-up and 2
+  8. families: the same step for each of the six agents (a warm-up and 2
      timed steps each), launch counts asserted; for IA2C_CU also that the
      weight consensus ran;
-  8. replay: a small f32 MA2C_NC update with ``fused_grad=False`` against
+  9. replay: a small f32 MA2C_NC update with ``fused_grad=False`` against
      the fused update from the same state and noise, launch counts asserted;
-  9. cacc: the CACC platoon from ``configs/config_ma2c_nc_cacc_catchup.ini``
+ 10. cacc: the CACC platoon from ``configs/config_ma2c_nc_cacc_catchup.ini``
      and ``configs/config_ia2c_cu_cacc_slowdown.ini`` at the files' own
      sizes (3 train steps each, launch counts asserted), and two small f32
      updates on the card against the CPU port;
- 10. eval/record: ``eval_episode`` (sampled, greedy) and ``record_episode``
+ 11. eval/record: ``eval_episode`` (sampled, greedy) and ``record_episode``
      (greedy, controller) on the grid and on the platoon with the params
      trained above, on the card against the same calls on the CPU with the
      same noise, and one whole sampled episode each on the card;
- 11. monaco: Monaco-28 MA2C_NC from ``configs/config_ma2c_nc_net.ini``: two
+ 12. monaco: Monaco-28 MA2C_NC from ``configs/config_ma2c_nc_net.ini``: two
      small f32 updates on the card against the CPU port; the file's own step
      (N=28, B=32, T=120, 64/64, f32: a warm-up and 3 timed steps, launch
      counts asserted, every sampled action inside its node's action count);
      the same env at the flagship's settings (B=768, bf16, sparse_comm,
      remat: a warm-up and 2 timed steps);
- 12. cli: in a temporary directory, the port's CLI on a copy of that file
+ 13. cli: in a temporary directory, the port's CLI on a copy of that file
      with ``total_step`` cut to 5 updates: ``train`` with ``in_train_test``
      (log rows, a test row, the config snapshot, checkpoints), ``train
      --restore`` with a doubled budget, ``evaluate`` from the checkpoint and
@@ -64,7 +76,7 @@ Phases (any failure raises, exits non-zero and prints no result line):
      ``Trainer`` run with the time inside and outside ``train_step`` read
      apart, the restored params held bit-equal to the trainer's final ones,
      and the checkpoint's size, save and restore times;
- 13. scripts: the learning and evaluation harnesses
+ 14. scripts: the learning and evaluation harnesses
      (``deeprl_network_tpu_torch/scripts/``): ``train_atsc.greedy_returns``
      on the 5x5 grid, every form of the hand-controller sweep on seeds
      10000-10002 at 720 steps, each form within 1e-5 of the CPU port over
@@ -73,15 +85,15 @@ Phases (any failure raises, exits non-zero and prints no result line):
      ``train_atsc`` (3x3 grid, ``--ckpt``) for 2 updates at B=8 with their
      final evals, launch counts asserted, every row's keys those of the JAX
      repo's ``scripts/``, the checkpoint restored;
- 14. agents: the reference-style host loop with the compat ``MA2C_NC`` class
+ 15. agents: the reference-style host loop with the compat ``MA2C_NC`` class
      on the platoon for two ``n_step = 10`` batches, launch counts asserted
      per call;
- 15. surface: the JAX package's re-exported names from the port's
+ 16. surface: the JAX package's re-exported names from the port's
      packages; the single-env ``policy_step`` at the flagship width
      (grid-25, 64/64, f32) on the card, one launch, bit-equal to
      ``policy_step_batched`` at B=1 and within 1e-5 of the CPU port;
      ``graft_entry.entry()`` once;
- 16. parallel: data-parallel training through ``make_parallel_a2c`` in
+ 17. parallel: data-parallel training through ``make_parallel_a2c`` in
      worker processes (``parallel/smoke_worker.py``): the NCCL path at world
      size 1 on the flagship (B=768); two gloo ranks sharing the card, (a) a
      small f32 MA2C_NC platoon update against one process on the combined
@@ -89,7 +101,7 @@ Phases (any failure raises, exits non-zero and prints no result line):
      at a global B=768, 384 a rank (launch counts, step, finite loss and
      params bit-identical across ranks asserted); env-steps/s of 1 and 2
      ranks, the gradient all-reduce's bytes and time; ``dryrun_multichip(2)``;
- 17. (--profile) device busy share and kernel time by name over one
+ 18. (--profile) device busy share and kernel time by name over one
      flagship step, and the number of kernels in one step of each family.
 
 Output: a kernels JSON line and the card's name and power limit on lines
@@ -458,6 +470,162 @@ def tune_kernels():
                     f"ms/launch over {ev.count} launches of {ev.key[:70]}")
 
 
+ENV_SOURCE = "deeprl_network_tpu_torch/ops/csrc/network_env.cu"
+ENV_REPLACES = "deeprl_network_tpu/envs/network.py:216"
+# the env kernel phase's lockstep cases: (name, topology, EnvConfig fields,
+# B, control steps, auto-reset, a rank's rows (offset, total) or None)
+ENV_CASES = (
+    ("grid25 b768", "grid5", {}, 768, 725, True, None),
+    ("grid9 b64", "grid3", {}, 64, 150, True, None),
+    ("monaco b32", "monaco", {}, 32, 725, True, None),
+    ("monaco b768", "monaco", {}, 768, 60, True, None),
+    ("grid25 b1 unwrapped", "grid5", {}, 1, 200, False, None),
+    ("grid25 obs channels hybrid", "grid5", dict(
+        queue_in_obs=True, phase_in_obs=True, objective="hybrid",
+        episode_length_sec=200), 64, 90, True, None),
+    ("grid25 init_density", "grid5", dict(
+        init_density=0.5, episode_length_sec=200), 64, 90, True, None),
+    ("grid25 rank rows 384 of 768", "grid5", dict(
+        init_density=0.5, episode_length_sec=200), 384, 90, True, (384, 768)),
+)
+# the env kernel's timed shapes: the grid and Monaco at B = 768 (the
+# flagship's rollout), 32 (the .ini files) and 1 (eval and record,
+# unwrapped)
+ENV_TIMED = (("grid25", "grid5"), ("monaco", "monaco"))
+ENV_TIMED_B = (768, 32, 1)
+
+
+def make_env(topology, env_kw, device="cuda"):
+    """The ATSC env of an env-kernel case: the 3x3 or 5x5 grid, or
+    Monaco-28 with the ``.ini`` file's env settings; ``env_kw`` replaces
+    EnvConfig fields."""
+    import dataclasses
+    from deeprl_network_tpu_torch.config import EnvConfig, load_config
+    from deeprl_network_tpu_torch.envs.grid import build_grid_topology
+    from deeprl_network_tpu_torch.envs.monaco import RealNetEnv
+    from deeprl_network_tpu_torch.envs.network import TrafficNetworkEnv
+    if topology == "monaco":
+        root = os.path.dirname(os.path.abspath(__file__))
+        cfg = load_config(os.path.join(root, MONACO_INI)).env
+        return RealNetEnv(dataclasses.replace(cfg, **env_kw), device=device)
+    cfg = EnvConfig(scenario="large_grid", coop_gamma=0.9, **env_kw)
+    return TrafficNetworkEnv(cfg, build_grid_topology(cfg, int(topology[4:])),
+                             device=device)
+
+
+def env_outputs(out):
+    """The tensors of one env step, in ``ENV_NAMES`` order."""
+    from deeprl_network_tpu_torch.ops.network_env import INFO_KEYS
+    state, obs, reward, done, info = out
+    return list(state) + [obs, reward, done] + [info[k] for k in INFO_KEYS]
+
+
+ENV_NAMES = ",".join(("queue", "transit", "wait", "prev_phase", "t",
+                      "done_state", "dropped", "obs", "reward", "done",
+                      "avg_queue", "avg_wait", "throughput", "arrived",
+                      "entered", "info_dropped"))
+
+
+def env_bytes_flops(env, B, auto_reset, q0, t):
+    """Bytes the env step must move for B rows at clocks ``t`` (each input
+    read once: the state but ``done``, the actions, the demand rows of the
+    distinct clocks, the static tables, ``q0``; each output written once:
+    the state, obs, reward, done and info) and its operations (per lane a
+    substep: two transit sums of D adds, about 25 more, and a multiply-add
+    per route nonzero twice)."""
+    T = env.tables
+    L, M, D, W = T.L, T.M, T.D, T.W
+    state = B * (4 * L * (D + 2) + 8 * M + 8 + 1 + 4)
+    rows = len(set(t.tolist()))
+    tables = 4 * (T.ints.numel() + T.floats.numel() - T.demand.numel())
+    nbytes = (state - B + 8 * B * M + 4 * rows * L + tables
+              + (4 * B * L if q0 is not None else 0)
+              + state + B + 4 * B * (M * W + M + 6))
+    flops = B * (env.scalars.control_interval_sec
+                 * (L * (2 * D + 25) + 4 * T.row_val.numel()) + 2 * M * W)
+    return nbytes, flops
+
+
+def check_env_kernel(card):
+    """The env kernel against its plain twin on the card, in lockstep (each
+    step from the kernel's state, the same actions and reset draws) at 1e-5
+    in every ``ENV_CASES`` case, with the twin's free run beside it; then
+    its times at ``ENV_TIMED``. Returns the kernels line's entry."""
+    import torch
+    from deeprl_network_tpu_torch.ops import network_env as ne
+    t_phase = time.perf_counter()
+    worst = 0.0
+    for name, topology, env_kw, B, steps, auto, rows in ENV_CASES:
+        env = make_env(topology, env_kw)
+        T, c, M = env.tables, env.scalars, env.topo.n_node
+        off, total = rows or (0, None)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        state, _ = env.reset(B, gen, off, total)
+        free = state
+        # every phase index the policy can emit, and one past it (clamped)
+        n_a = env.spec.n_a_max + 1
+        case_worst = free_worst = 0.0
+        n_done = 0
+        for t in range(steps):
+            a = torch.randint(0, n_a, (B, M), device="cuda", generator=gen)
+            q0 = env._reset_queue(B, gen, off, total) if auto else None
+            got = ne.network_env_step(T, c, state, a, q0, auto)
+            want = ne.network_env_step_ref(T, c, state, a, q0, auto)
+            case_worst = max(case_worst, max_err(
+                env_outputs(got), env_outputs(want), 1e-5, ENV_NAMES))
+            free_out = ne.network_env_step_ref(T, c, free, a, q0, auto)
+            free_worst = max(free_worst, max(
+                float((x.float() - y.float()).abs().max())
+                for x, y in zip(env_outputs(got), env_outputs(free_out))))
+            n_done += int(got[3].sum())
+            state, free = got[0], free_out[0]
+        if steps > env.episode_steps and n_done < B:
+            raise AssertionError(f"env kernel {name}: {n_done} rows done "
+                                 f"in {steps} steps")
+        worst = max(worst, case_worst)
+        log("env_kernel_check " + json.dumps({
+            "case": name, "B": B, "steps": steps, "auto_reset": auto,
+            "rows": rows, "env": env_kw, "rows_done": n_done,
+            "lockstep_max_abs_err": case_worst,
+            "free_run_max_abs_diff": free_worst}))
+        del env, state, free, got, want, free_out
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    entry = None
+    for name, topology in ENV_TIMED:
+        env = make_env(topology, {})
+        T, c, M = env.tables, env.scalars, env.topo.n_node
+        for B in ENV_TIMED_B:
+            auto = B > 1
+            gen = torch.Generator(device="cuda").manual_seed(1)
+            state, _ = env.reset(B, gen)
+            acts = torch.randint(0, env.spec.n_a_max, (31, B, M),
+                                 device="cuda", generator=gen)
+            for t in range(30):       # a state with traffic in it
+                state = ne.network_env_step(T, c, state, acts[t], None,
+                                            auto)[0]
+            a = acts[30]
+            fn = lambda: ne.network_env_step(T, c, state, a, None, auto)
+            plain = lambda: ne.network_env_step_ref(T, c, state, a, None,
+                                                    auto)
+            nbytes, flops = env_bytes_flops(env, B, auto, None, state.t)
+            bound_ms, bound_by = bound(nbytes, flops, "float32")
+            row = {"shape": f"{name} b{B}", "auto_reset": auto,
+                   "ms": graph_ms(fn), "cold_ms": graph_ms(fn, flush=flush),
+                   "call_ms": host_call_ms(fn),
+                   "plain_ms": graph_ms(plain, n=5),
+                   "plain_call_ms": host_call_ms(plain, n=20),
+                   "bytes": nbytes, "flops": flops, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "card": card}
+            log("env_kernel_time " + json.dumps(row))
+            if (name, B) == ("grid25", 768):
+                entry = dict(max_abs_err=worst, ms=row["ms"],
+                             plain_ms=row["plain_ms"], bound_ms=bound_ms,
+                             bound_by=bound_by)
+        del env
+    log(f"env kernel: phase {time.perf_counter() - t_phase:.1f} s")
+    return entry
+
+
 def make_flagship(device, env_kw=None, agent="ma2c_nc", **overrides):
     """The flagship configuration through make_a2c for ``agent``;
     ``overrides`` replace ModelConfig fields, ``env_kw`` adds EnvConfig
@@ -500,19 +668,23 @@ def make_cacc(path, device, env_kw=None, **overrides):
 
 def zero_counts():
     from deeprl_network_tpu_torch.ops import lstm_cell as lc
-    for k in lc.LAUNCHES:
-        lc.LAUNCHES[k] = 0
+    from deeprl_network_tpu_torch.ops import network_env as ne
+    for counts in (lc.LAUNCHES, ne.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
 
 
-def expect_counts(what, fwd, bwd, variant):
+def expect_counts(what, fwd, bwd, variant, env):
     """Raise unless the wrappers launched ``fwd`` forward and ``bwd``
-    backward kernels since ``zero_counts()``, all of ``variant``; returns
-    the counts."""
+    backward cell kernels, all of ``variant``, and ``env`` env-step
+    kernels since ``zero_counts()``; returns the counts."""
     from deeprl_network_tpu_torch.ops import lstm_cell as lc
-    want = {k: 0 for k in lc.LAUNCHES}
+    from deeprl_network_tpu_torch.ops import network_env as ne
+    want = {k: 0 for k in {**lc.LAUNCHES, **ne.LAUNCHES}}
     want.update({"lstm_cell_fwd": fwd, f"lstm_cell_fwd_{variant}": fwd,
-                 "lstm_cell_bwd": bwd, f"lstm_cell_bwd_{variant}": bwd})
-    got = dict(lc.LAUNCHES)
+                 "lstm_cell_bwd": bwd, f"lstm_cell_bwd_{variant}": bwd,
+                 "network_env_step": env})
+    got = {**lc.LAUNCHES, **ne.LAUNCHES}
     if got != want:
         raise AssertionError(f"{what}: kernel launches {got}, expected "
                              f"{want}")
@@ -523,12 +695,13 @@ def check_wide_reference():
     """F1 closed end to end: a small f32 MA2C_NC step at num_fc=64,
     num_lstm=256 (F + H = 320, past the general kernels' old cap) on the
     card against the CPU port; every cell launch is general (remat: 2T+1
-    forward and T backward an update, two updates)."""
+    forward and T backward an update, two updates), one env-step launch a
+    control step."""
     zero_counts()
     check_reference("reference wide",
                     lambda device: small_grid(device, num_fc=64,
                                               num_lstm=256), 5)
-    expect_counts("reference wide", 2 * 17, 2 * 8, "general")
+    expect_counts("reference wide", 2 * 17, 2 * 8, "general", 2 * 8)
 
 
 def check_finite_and_moved(what, m, params, p0):
@@ -586,9 +759,11 @@ def small_grid(device, **overrides):
                          **dict(SMALL, **overrides))
 
 
-def timed_steps(what, fns, ts, n_timed, fwd_per_step, bwd_per_step, variant):
+def timed_steps(what, fns, ts, n_timed, fwd_per_step, bwd_per_step, variant,
+                env_per_step):
     """A warm-up ``train_step`` and ``n_timed`` timed ones from ``ts``, with
-    the launch counts set to 0 before and asserted after; checks that the
+    the launch counts set to 0 before and asserted after (``env_per_step``
+    env-step launches an update: T on the ATSC envs); checks that the
     result is finite, the masters f32 and the params changed. Returns
     (state, last metrics, launch counts, per-step seconds)."""
     import torch
@@ -608,7 +783,8 @@ def timed_steps(what, fns, ts, n_timed, fwd_per_step, bwd_per_step, variant):
         step_times.append(time.perf_counter() - t0)
     n_steps = n_timed + 1
     launches = expect_counts(what, fwd_per_step * n_steps,
-                             bwd_per_step * n_steps, variant)
+                             bwd_per_step * n_steps, variant,
+                             env_per_step * n_steps)
     check_finite_and_moved(what, m, ts.params, p0)
     return ts, m, launches, step_times
 
@@ -622,9 +798,10 @@ def run_main_path(card: str, n_timed: int = 3):
     ts = fns.init_state(0)
     torch.cuda.reset_peak_memory_stats()
     # every launch of the flagship step takes the tensor-core variant:
-    # rollout, bootstrap and the remat recompute forward, T backward
+    # rollout, bootstrap and the remat recompute forward, T backward; the
+    # env step is one launch a control step
     ts, m, launches, step_times = timed_steps(
-        "main path", fns, ts, n_timed, 2 * T + 1, T, "tc")
+        "main path", fns, ts, n_timed, 2 * T + 1, T, "tc", T)
     dt = sum(step_times)
     sps = n_timed * T * B / dt
     log("main path: " + json.dumps({
@@ -652,9 +829,9 @@ def run_bench(card: str):
     zero_counts()
     r = bench.measure(seconds_budget=15, **bench.FLAGSHIP)
     # the window's updates and the excluded warm-up, each 2T+1 forward and
-    # T backward tensor-core launches
+    # T backward tensor-core launches and T env steps
     n = r.updates + 1
-    launches = expect_counts("bench", n * 241, n * 120, "tc")
+    launches = expect_counts("bench", n * 241, n * 120, "tc", n * 120)
     if not (r.env_steps_per_s > baseline and math.isfinite(r.loss)):
         raise AssertionError(f"bench: rate {r.env_steps_per_s} against the "
                              f"baseline's {baseline}, loss {r.loss}")
@@ -690,7 +867,7 @@ def run_families(card: str, profile: bool, n_timed: int = 2):
         ts = fns.init_state(0)
         spread0 = agent_spread(ts.params)
         ts, m, launches, step_times = timed_steps(
-            what, fns, ts, n_timed, 2 * T + 1, T, "tc")
+            what, fns, ts, n_timed, 2 * T + 1, T, "tc", T)
         line = {"agent": agent, "loss": float(m["loss"]),
                 "grad_norm": float(m["grad_norm"]),
                 "env_steps_per_s": n_timed * T * B / sum(step_times),
@@ -740,7 +917,8 @@ def check_replay():
         zero_counts()
         ts, m = fns.train_step(ts, gumbel=g)
         torch.cuda.synchronize()
-        expect_counts(f"replay (fused_grad={fused})", n_fwd, T, "general")
+        expect_counts(f"replay (fused_grad={fused})", n_fwd, T, "general",
+                      T)
         out[fused] = (ts, m)
     (ts_f, m_f), (ts_r, m_r) = out[True], out[False]
     for k in ("loss", "grad_norm", "value_loss", "entropy", "step_reward"):
@@ -772,9 +950,10 @@ def run_cacc(card: str, n_timed: int = 2):
         if fns.steps_per_update != T * B or fns.spec.n_agent != 8 \
                 or fns.spec.n_lstm != 64 or fns.spec.n_fc != 64:
             raise AssertionError(f"{what}: not the size the file states")
-        # no remat in these files: T rollout + 1 bootstrap forwards
+        # no remat in these files: T rollout + 1 bootstrap forwards; the
+        # platoon's step is PyTorch ops, no env kernel
         ts, m, launches, step_times = timed_steps(
-            what, fns, ts, n_timed, T + 1, T, "general")
+            what, fns, ts, n_timed, T + 1, T, "general", 0)
         first_launches = first_launches or launches
         log("cacc " + json.dumps({
             "config": path, "loss": float(m["loss"]),
@@ -796,12 +975,13 @@ def run_cacc(card: str, n_timed: int = 2):
 
 
 def check_eval_record(what, gpu_fns, cpu_fns, params, horizon, episode,
-                      card):
+                      card, env_kernel):
     """``eval_episode`` and ``record_episode`` on the card against the same
     calls on the CPU port with the same params and noise over ``horizon``
     steps: action sequences equal, everything else within 1e-4 relative;
     the cell's launches counted (one forward per step, none for the
-    controller); then one whole sampled episode (``episode`` steps, the
+    controller), and with ``env_kernel`` (the ATSC envs) one env-step
+    launch a step; then one whole sampled episode (``episode`` steps, the
     env's default horizon) on the card."""
     import numpy as np
     import torch
@@ -825,7 +1005,7 @@ def check_eval_record(what, gpu_fns, cpu_fns, params, horizon, episode,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         expect_counts(f"{what} {name}", horizon if uses_policy else 0, 0,
-                      "general")
+                      "general", horizon if env_kernel else 0)
         want = getattr(cpu_fns, fn)(cpu_params if uses_policy else None, 0,
                                     horizon, **kw)
         if got.keys() != want.keys():
@@ -855,7 +1035,8 @@ def check_eval_record(what, gpu_fns, cpu_fns, params, horizon, episode,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     n = episode
-    expect_counts(f"{what} whole episode", n, 0, "general")
+    expect_counts(f"{what} whole episode", n, 0, "general",
+                  n if env_kernel else 0)
     if not torch.isfinite(out["episode_return"]):
         raise AssertionError(f"{what}: whole episode failed")
     log(f"{what} whole sampled episode: {n} steps, executed "
@@ -891,14 +1072,14 @@ def run_monaco(card: str):
         # every sampled action must lie inside its node's action count
         n_a = torch.as_tensor(env.spec.n_a_ls, device="cuda")
         bad = [torch.zeros((), dtype=torch.bool, device="cuda")]
-        step = env.step
+        step = env.step_autoreset
 
-        def checked_step(state, action):
+        def checked_step(state, action, *rest):
             bad[0] = bad[0] | (action >= n_a).any() | (action < 0).any()
-            return step(state, action)
-        env.step = checked_step
+            return step(state, action, *rest)
+        env.step_autoreset = checked_step
         ts, m, launches, step_times = timed_steps(
-            what, fns, fns.init_state(0), n_timed, fwd, T, variant)
+            what, fns, fns.init_state(0), n_timed, fwd, T, variant, T)
         if bool(bad[0]):
             raise AssertionError(f"{what}: a padded phase was sampled")
         out[what] = launches
@@ -956,13 +1137,13 @@ def run_cli(card: str):
             cp.write(f)
         return path
 
-    def timed_cli(what, argv, fwd, bwd):
+    def timed_cli(what, argv, fwd, bwd, env):
         zero_counts()
         t0 = time.perf_counter()
         cli(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        expect_counts(what, fwd, bwd, "general")
+        expect_counts(what, fwd, bwd, "general", env)
         return wall
 
     with tempfile.TemporaryDirectory() as d:
@@ -973,7 +1154,8 @@ def run_cli(card: str):
             "cli train",
             ["--base-dir", base, "train", "--config-dir", ini,
              "--test-mode", "in_train_test"],
-            n_upd * (T + 1) + n_test_seeds * horizon, n_upd * T)
+            n_upd * (T + 1) + n_test_seeds * horizon, n_upd * T,
+            n_upd * T + n_test_seeds * horizon)
         require_files("cli train", data, [
             "train_log.csv", "train_log.jsonl", "test_log.csv",
             os.path.basename(MONACO_INI)])
@@ -1001,7 +1183,7 @@ def run_cli(card: str):
         wall = timed_cli(
             "cli train --restore",
             ["--base-dir", base, "train", "--config-dir", bigger,
-             "--restore"], n_upd * (T + 1), n_upd * T)
+             "--restore"], n_upd * (T + 1), n_upd * T, n_upd * T)
         after = [float(r["step"])
                  for r in csv_rows(os.path.join(data, "train_log.csv"))]
         new = after[len(steps):]
@@ -1014,7 +1196,7 @@ def run_cli(card: str):
         wall = timed_cli(
             "cli evaluate",
             ["--base-dir", base, "evaluate", "--evaluation-seeds", "2000"],
-            horizon, 0)
+            horizon, 0, horizon)
         require_files("cli evaluate", eva, [
             "eval_log.csv", "episode_seed2000.csv",
             "real_net_ma2c_nc_traffic.csv", "real_net_ma2c_nc_control.csv",
@@ -1032,7 +1214,8 @@ def run_cli(card: str):
 
         wall = timed_cli(
             "cli evaluate --naive",
-            ["--base-dir", base, "evaluate", "--naive"], 0, 0)
+            ["--base-dir", base, "evaluate", "--naive"], 0, 0,
+            3 * horizon)     # the default seeds 2000, 2500, 3000
         require_files("cli evaluate --naive", eva, [
             f"real_net_greedy_{k}.csv" for k in ("traffic", "control",
                                                  "trip")])
@@ -1143,7 +1326,8 @@ def run_scripts(card: str):
     t0 = time.perf_counter()
     sweep = train_atsc.greedy_returns(grid("cuda"), seeds, 720)
     sweep_s = time.perf_counter() - t0
-    expect_counts("scripts greedy_returns", 0, 0, "general")
+    # one env step a control step for the whole sweep's rows
+    expect_counts("scripts greedy_returns", 0, 0, "general", 720)
     head_gpu = train_atsc.greedy_returns(grid("cuda"), seeds, 120)
     head_cpu = train_atsc.greedy_returns(grid("cpu"), seeds, 120)
     for form, rets in head_cpu.items():
@@ -1179,7 +1363,7 @@ def run_scripts(card: str):
         # 2 updates, then 3 sampled eval episodes of 600 steps
         launches = {"scripts train_cacc_families": expect_counts(
             "scripts train_cacc_families", 2 * (T + 1) + 3 * 600, 2 * T,
-            "general")}
+            "general", 0)}
         rows = jsonl(out)
         check_rows("train_cacc_families", rows,
                    os.path.join(root, "scripts", "train_cacc_families.py"))
@@ -1196,8 +1380,10 @@ def run_scripts(card: str):
         torch.cuda.synchronize()
         atsc_s = time.perf_counter() - t0
         # 2 updates, then 3 sampled and 3 argmax eval episodes of 720 steps
+        # and the hand-controller sweep (720 env steps)
         launches["scripts train_atsc"] = expect_counts(
-            "scripts train_atsc", 2 * (T + 1) + 6 * 720, 2 * T, "general")
+            "scripts train_atsc", 2 * (T + 1) + 6 * 720, 2 * T, "general",
+            2 * T + 7 * 720)
         rows = jsonl(out)
         check_rows("train_atsc", rows,
                    os.path.join(root, "scripts", "train_atsc.py"))
@@ -1248,7 +1434,7 @@ def run_agents(card: str):
         for _ in range(n_step):
             zero_counts()
             action = model.forward(ob[0].cpu().numpy(), done)
-            expect_counts("agents forward", 1, 0, "general")
+            expect_counts("agents forward", 1, 0, "general", 0)
             state, ob, reward, d, _ = env.step(
                 state, torch.as_tensor(action, device="cuda")[None])
             done = bool(d[0])
@@ -1258,12 +1444,12 @@ def run_agents(card: str):
                 state, ob = env.reset(1, gen)
         zero_counts()
         R = model.forward(ob[0].cpu().numpy(), done, out_type="v")
-        expect_counts("agents forward v", 1, 0, "general")
+        expect_counts("agents forward v", 1, 0, "general", 0)
         if done:
             R = np.zeros_like(R)
         zero_counts()
         stats = model.backward(R)
-        expect_counts("agents backward", n_step, n_step, "general")
+        expect_counts("agents backward", n_step, n_step, "general", 0)
         if not all(np.isfinite(v) for v in stats.values()):
             raise AssertionError(f"agents: stats {stats}")
     torch.cuda.synchronize()
@@ -1331,7 +1517,8 @@ def run_surface(card: str):
             if dev == "cpu":
                 continue
             torch.cuda.synchronize()
-            counts = expect_counts("surface policy_step", 1, 0, "general")
+            counts = expect_counts("surface policy_step", 1, 0, "general",
+                                   0)
             bc, blo, bv = policy_step_batched(
                 spec, params[dev], Carry(t["c"][None], t["h"][None]),
                 t["obs"][None], t["fp"][None], args[3].reshape(1), consts)
@@ -1351,7 +1538,7 @@ def run_surface(card: str):
     zero_counts()
     carry, logits, values = fn(*fargs)
     torch.cuda.synchronize()
-    expect_counts("surface entry", 1, 0, "general")
+    expect_counts("surface entry", 1, 0, "general", 0)
     if (tuple(carry.h.shape) != (n, H) or tuple(logits.shape) != (
             n, spec.n_a_max) or tuple(values.shape) != (n,)
             or not torch.isfinite(logits).all()):
@@ -1376,15 +1563,18 @@ def parallel_rate(results, T: int) -> float:
     return (len(results[0]["update_s"]) - 1) * T * B / slowest
 
 
-def check_rank_results(what, results, n_updates, fwd, bwd, variant, T):
+def check_rank_results(what, results, n_updates, fwd, bwd, variant, T, env):
     """Each rank's launch counts (``fwd`` + ``bwd`` an update, all of
-    ``variant``), finite loss, global step, and params equal across ranks."""
+    ``variant``, and ``env`` env steps), finite loss, global step, and
+    params equal across ranks."""
     import math
     B = results[0]["envs"] * len(results)
     want = {"lstm_cell_fwd": fwd * n_updates,
             f"lstm_cell_fwd_{variant}": fwd * n_updates,
             "lstm_cell_bwd": bwd * n_updates,
             f"lstm_cell_bwd_{variant}": bwd * n_updates}
+    if env:
+        want["network_env_step"] = env * n_updates
     for r in results:
         if r["launches"] != want:
             raise AssertionError(f"{what} rank {r['rank']}: kernel launches "
@@ -1434,7 +1624,7 @@ def run_other(card: str):
             # a warm-up and 2 timed updates; every launch takes the tc
             # variant: rollout, bootstrap and remat recompute, T backward
             launches[what] = check_rank_results(what, res, 3, 2 * T + 1, T,
-                                                "tc", T)
+                                                "tc", T, T)
             if {r["backend"] for r in res} != {backend}:
                 raise AssertionError(f"{what}: backend {res[0]['backend']}")
             rates[what] = parallel_rate(res, T)
@@ -1458,7 +1648,8 @@ def run_other(card: str):
         res = run_ranks(2, small, os.path.join(d, "small"), device="cuda",
                         backend="gloo", timeout=600)
         what = "parallel cacc 2 ranks"
-        launches[what] = check_rank_results(what, res, 2, 9, 8, "general", 8)
+        launches[what] = check_rank_results(what, res, 2, 9, 8, "general", 8,
+                                            0)
         env = CACCEnv(EnvConfig(**env_kw), device="cuda")
         fns = make_a2c(env, ModelConfig(**model),
                        TrainConfig(total_step=10_000), agent="ma2c_nc",
@@ -1577,6 +1768,7 @@ def main(argv=None) -> int:
         f"wall, nvcc per source in parallel)")
 
     entries = check_kernels()
+    env_entry = check_env_kernel(card)
     if args.tune:
         tune_kernels()
     if args.kernels_only:
@@ -1594,17 +1786,17 @@ def main(argv=None) -> int:
     check_replay()
     cacc, cacc_launches = run_cacc(card)
     check_eval_record("eval/record grid", fns, make_flagship("cpu"),
-                      grid_params, 120, 720, card)
+                      grid_params, 120, 720, card, True)
     cacc_fns, cacc_ts = cacc[CACC_CONFIGS[0]]
     # initial noise off: the CPU's and the card's generators differ
     quiet = dict(init_noise_h=0.0, init_noise_v=0.0)
     check_eval_record(
         "eval/record cacc", make_cacc(CACC_CONFIGS[0], "cuda", env_kw=quiet),
         make_cacc(CACC_CONFIGS[0], "cpu", env_kw=quiet), cacc_ts.params, 200,
-        600, card)
+        600, card, False)
     zero_counts()
     out = cacc_fns.eval_episode(cacc_ts.params, 0)
-    expect_counts("eval cacc with initial noise", 600, 0, "general")
+    expect_counts("eval cacc with initial noise", 600, 0, "general", 0)
     log(f"eval cacc with initial noise: return "
         f"{float(out['episode_return']):.4f} over "
         f"{float(out['episode_len']):.0f} steps")
@@ -1650,6 +1842,24 @@ def main(argv=None) -> int:
                 "cacc ini" if general else "flagship": n,
                 "monaco ini" if general else "monaco b768": n_monaco,
                 **n_other}))
+    # the env kernel: the flagship run's count, and every other path's
+    env_paths = {"flagship": launches["network_env_step"],
+                 "bench": bench_launches["network_env_step"],
+                 **{k: v["network_env_step"]
+                    for k, v in monaco_launches.items()},
+                 "scripts train_atsc":
+                     scripts_launches["scripts train_atsc"][
+                         "network_env_step"],
+                 **{k: v["network_env_step"]
+                    for k, v in parallel_launches.items()
+                    if "network_env_step" in v}}
+    if min(env_paths.values()) <= 0 or len(env_paths) < 7:
+        raise AssertionError(f"network_env_step was not launched on its "
+                             f"paths: {env_paths}")
+    kernels.append(dict(
+        name="network_env_step", route="cuda", source=ENV_SOURCE,
+        replaces=ENV_REPLACES, launches=env_paths["flagship"],
+        library_ms=None, launches_by_path=env_paths, **env_entry))
     log(f"total: {time.perf_counter() - t_start:.1f} s; "
         f"throughput {sps:.1f} env-steps/s on {card}")
     print(json.dumps({"kernels": kernels}))

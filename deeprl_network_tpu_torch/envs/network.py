@@ -5,9 +5,12 @@ store-and-forward queue/flow dynamics (stop-line queues, an in-transit ring
 buffer per lane with a static link delay, expected-space spillback, yellow
 windows after a phase switch, entry demand dropped when a link is full),
 written for B env instances at once. Every state leaf carries a leading
-``[B]`` axis; the JAX engine's ``vmap`` becomes that axis, and its ``lax.scan``
-over the 1-second substeps becomes a Python loop. The static tables are
-built in numpy exactly as in the JAX engine, then moved to ``device``.
+``[B]`` axis; the JAX engine's ``vmap`` becomes that axis. Its step, the
+1-second substeps that XLA fuses into one computation, is one kernel launch
+on the card (``ops/network_env.py``; the plain PyTorch twin on the CPU),
+with the auto-reset select folded in by ``step_autoreset``. The static
+tables are built in numpy exactly as in the JAX engine, then moved to
+``device``.
 """
 
 from __future__ import annotations
@@ -21,6 +24,10 @@ import torch
 from deeprl_network_tpu_torch.config import EnvConfig
 from deeprl_network_tpu_torch.envs.base import (
     Env, EnvSpec, hop_distances, uniform_rows,
+)
+from deeprl_network_tpu_torch.ops.network_env import (
+    EnvScalars, NetworkEnvTables, network_env_step, network_obs_ref,
+    reset_state,
 )
 from deeprl_network_tpu_torch.utils.device import resolve_device
 
@@ -125,36 +132,38 @@ class TrafficNetworkEnv(Env):
             self._node_lane_mask[m, ls] = 1.0
         self.episode_steps = cfg.episode_steps_atsc
         assert topo.demand.shape[0] >= self.episode_steps
-        # link travel time: static per-lane delay -> a one-hot [D, L]
-        # scatter map; pushing routed vehicles onto the transit buffer is
-        # then a broadcast multiply-add
+        # link travel time: static per-lane delay (a one-hot [D, L] scatter
+        # map in the twin, a slot per lane in the kernel)
         delay = (topo.lane_delay if topo.lane_delay is not None
                  else np.ones(topo.n_lane))
         delay = np.clip(np.asarray(delay, np.int64), 1, None)
         self.max_delay = int(delay.max())
-        onehot = np.zeros((self.max_delay, topo.n_lane), np.float32)
-        onehot[delay - 1, np.arange(topo.n_lane)] = 1.0
-        self._delay_onehot = onehot
 
-        # device copies of the static tables
-        f32 = lambda a: torch.as_tensor(np.asarray(a, np.float32),
-                                        device=self.device)
-        self._t_gather = torch.as_tensor(gather, device=self.device)
-        self._t_gmask = f32(gmask)
-        if self._use_phase:
-            self._t_phase_place = f32(self._phase_place)
-        self._t_node_lane_mask = f32(self._node_lane_mask)
-        self._t_delay_onehot = f32(onehot)
-        self._t_gate = f32(topo.phase_gate).reshape(M * P_max, L)
-        self._t_valid = f32(topo.phase_valid)
-        self._t_route = f32(topo.route)
-        self._t_route_out = self._t_route.sum(1)
-        self._t_entry = f32(topo.entry_lane)
-        self._t_demand = f32(topo.demand)
-        self._t_n_valid = torch.as_tensor(
-            topo.phase_valid.sum(1).astype(np.int64), device=self.device)
+        # the step's tables on the device, and the names reset, record and
+        # the greedy controllers read
+        self.tables = NetworkEnvTables(
+            topo, gather, gmask,
+            self._phase_place if self._use_phase else None,
+            self._node_lane_mask, delay, self._use_queue, self._use_wait,
+            self.device)
+        self.scalars = EnvScalars.from_config(cfg)
+        self._t_gate = self.tables.gate
+        self._t_valid = self.tables.valid
+        self._t_node_lane_mask = self.tables.node_lane_mask
 
     # ---- batched functions ----
+
+    def _reset_queue(self, batch: int, generator: torch.Generator = None,
+                     offset: int = 0, total: Optional[int] = None
+                     ) -> Optional[torch.Tensor]:
+        """The reset's queues: drawn uniformly from ``generator`` when
+        ``init_density > 0`` (rows ``[offset, offset + batch)`` of
+        ``total``, see ``base.uniform_rows``), else None (empty)."""
+        if self.cfg.init_density <= 0:
+            return None
+        return (uniform_rows((batch, self.topo.n_lane), generator,
+                             self.device, offset, total)
+                * self.cfg.init_density * self.cfg.lane_capacity)
 
     def reset(self, batch: int, generator: torch.Generator = None,
               offset: int = 0, total: Optional[int] = None
@@ -163,131 +172,35 @@ class TrafficNetworkEnv(Env):
         batch)`` of ``total``, see ``base.uniform_rows``). Queues start
         empty unless ``init_density > 0``, in which case they are drawn
         uniformly from ``generator``."""
-        L, dev = self.topo.n_lane, self.device
-        if self.cfg.init_density > 0:
-            q0 = (uniform_rows((batch, L), generator, dev, offset, total)
-                  * self.cfg.init_density * self.cfg.lane_capacity)
-        else:
-            q0 = torch.zeros((batch, L), device=dev)
-        state = NetworkState(
-            queue=q0,
-            transit=torch.zeros((batch, self.max_delay, L), device=dev),
-            wait=torch.zeros((batch, L), device=dev),
-            prev_phase=torch.zeros((batch, self.topo.n_node), dtype=torch.int64,
-                                   device=dev),
-            t=torch.zeros((batch,), dtype=torch.int64, device=dev),
-            done=torch.zeros((batch,), dtype=torch.bool, device=dev),
-            dropped=torch.zeros((batch,), device=dev))
+        state = reset_state(NetworkState, self.tables, batch,
+                            self._reset_queue(batch, generator, offset,
+                                              total))
         return state, self._obs(state)
 
     def _obs(self, s: NetworkState) -> torch.Tensor:
-        c = self.cfg
-        # "wave" = all vehicles on the incoming lane: queued + approaching
-        wave = s.queue + s.transit.sum(1)
-        feats = torch.clamp(wave / c.norm_wave, 0.0, c.clip_wave)
-        if self._use_queue:
-            qn = torch.clamp(s.queue / c.norm_wave, 0.0, c.clip_wave)
-            feats = torch.cat([feats, qn], -1)
-        if self._use_wait:
-            wt = torch.clamp(s.wait / c.norm_wait, 0.0, c.clip_wait)
-            feats = torch.cat([feats, wt], -1)
-        # packed per-agent: valid dims are the first n_s_ls[i] of each row
-        out = feats[:, self._t_gather] * self._t_gmask
-        if self._use_phase:
-            onehot = torch.nn.functional.one_hot(
-                s.prev_phase, self.topo.phase_gate.shape[1]).float()
-            out = out + torch.einsum("bmp,mpw->bmw", onehot,
-                                     self._t_phase_place)
-        return out
+        return network_obs_ref(self.tables, self.scalars, s)
 
     def step(self, s: NetworkState, action: torch.Tensor
              ) -> Tuple[NetworkState, torch.Tensor, torch.Tensor,
                         torch.Tensor, Dict[str, torch.Tensor]]:
-        """action: [B, M] int phase index per node."""
-        c = self.cfg
-        cap = c.lane_capacity
-        B = action.shape[0]
-        P = self.topo.phase_gate.shape[1]
-        # clamp invalid (padded) phases to 0 .. n_valid - 1
-        act = torch.minimum(torch.clamp(action.long(), min=0),
-                            self._t_n_valid - 1)
-        # green gate of the chosen phase, per lane: [B, L]
-        onehot = torch.nn.functional.one_hot(act, P).float()
-        lane_gate = onehot.reshape(B, -1) @ self._t_gate
-        switched = (act != s.prev_phase).float()               # [B, M]
-        # yellow window: lanes of switched nodes see no green for the
-        # first yellow_interval_sec substeps
-        lane_switch = switched @ self._t_node_lane_mask        # [B, L]
-        t_idx = torch.clamp(s.t, max=self.topo.demand.shape[0] - 1)
-        demand_t = self._t_demand[t_idx]                       # [B, L]
+        """action: [B, M] int phase index per node. One launch of the env
+        kernel on the card (``ops/network_env.py``), its plain twin on the
+        CPU."""
+        return network_env_step(self.tables, self.scalars, s,
+                                action.long().contiguous())
 
-        route, route_out = self._t_route, self._t_route_out
-        delay_onehot = self._t_delay_onehot[None]              # [1, D, L]
-        inflow = demand_t * self._t_entry
-        q, transit, w, dropped = s.queue, s.transit, s.wait, s.dropped
-        flows = arrivals_out = entered_in = None
-        for k in range(c.control_interval_sec):
-            # vehicles finishing link traversal join the stop-line queue
-            arriving = transit[:, 0]
-            transit = torch.cat(
-                [transit[:, 1:], torch.zeros_like(transit[:, :1])], 1)
-            q = q + arriving
-            # arrivals past capacity are counted in `dropped`
-            overflow = torch.clamp(q - cap, min=0.0)
-            q = q - overflow
-            yellow = 1.0 if k < c.yellow_interval_sec else 0.0
-            g = lane_gate * (1.0 - yellow * lane_switch)
-            # downstream space counts queued AND in-transit occupancy
-            occ = q + transit.sum(1)
-            space = torch.clamp(cap - occ, min=0.0) @ route.T
-            # lanes whose flow exits the network are never blocked
-            space = torch.where(route_out > 1e-6,
-                                space / torch.clamp(route_out, min=1e-6),
-                                torch.full_like(space, cap))
-            dq = torch.minimum(torch.minimum(q, g * c.sat_flow), space)
-            q2 = q - dq
-            # routed vehicles enter the downstream link and arrive after
-            # lane_delay[l'] substeps (one-hot scatter by static delay)
-            routed = dq @ route
-            transit = transit + delay_onehot * routed[:, None, :]
-            # entry demand enters its boundary link, same travel delay
-            free = torch.clamp(cap - (q2 + transit.sum(1)), min=0.0)
-            accepted = torch.minimum(inflow, free)
-            transit = transit + delay_onehot * accepted[:, None, :]
-            dropped = (dropped + (inflow - accepted).sum(-1)
-                       + overflow.sum(-1))
-            served = (dq > 1e-4).float()
-            w = (w + 1.0) * (q2 > 0.1).float() * (1.0 - served)
-            arrived = (dq * torch.clamp(1.0 - route_out, min=0.0)).sum(-1)
-            if flows is None:
-                flows, arrivals_out = dq.sum(-1), arrived
-                entered_in = accepted.sum(-1)
-            else:
-                flows = flows + dq.sum(-1)
-                arrivals_out = arrivals_out + arrived
-                entered_in = entered_in + accepted.sum(-1)
-            q = q2
-
-        t_new = s.t + 1
-        done = t_new >= self.episode_steps
-        s_new = NetworkState(queue=q, transit=transit, wait=w,
-                             prev_phase=act, t=t_new, done=done,
-                             dropped=dropped)
-        node_queue = q @ self._t_node_lane_mask.T               # [B, M]
-        node_wait = w @ self._t_node_lane_mask.T
-        if c.objective == "queue":
-            reward = -node_queue
-        elif c.objective == "wait":
-            reward = -node_wait
-        else:  # hybrid
-            reward = -(node_queue + c.coef_wait * node_wait)
-        info = {"avg_queue": node_queue.mean(-1),
-                "avg_wait": node_wait.mean(-1),
-                "throughput": flows,
-                "arrived": arrivals_out,
-                "entered": entered_in,
-                "dropped": dropped}
-        return s_new, self._obs(s_new), reward.float(), done, info
+    def step_autoreset(self, s: NetworkState, action: torch.Tensor,
+                       generator: torch.Generator = None, offset: int = 0,
+                       total: Optional[int] = None):
+        """``step`` and, for rows that are done, a fresh reset in the same
+        launch: what ``AutoResetEnv.step`` returns (state and obs of the
+        reset where done; reward, done and info of the transition). The
+        reset's draw, if any, is taken from ``generator`` as ``reset``
+        takes it, after the step's."""
+        q0 = self._reset_queue(action.shape[0], generator, offset, total)
+        return network_env_step(self.tables, self.scalars, s,
+                                action.long().contiguous(), q0,
+                                auto_reset=True)
 
     def record(self, s: NetworkState) -> Dict[str, torch.Tensor]:
         """Per-step traffic series (queue / wait / wave per node), each

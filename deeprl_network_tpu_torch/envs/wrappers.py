@@ -2,7 +2,8 @@
 
 The reference trainer resets an env mid-batch on done. For B batched
 instances that becomes a per-env ``torch.where`` between the stepped state
-and a fresh reset."""
+and a fresh reset, or, for an env with ``step_autoreset`` (the ATSC
+engine), the same select inside its step kernel."""
 
 from __future__ import annotations
 
@@ -28,7 +29,11 @@ class AutoResetEnv:
     fresh reset while reward/done describe the terminating transition.
     A data-parallel rank's wrapper serves rows ``[offset, offset + batch)``
     of a global batch of ``total``: every reset draws at the global shape
-    and keeps those rows."""
+    and keeps those rows.
+
+    An env whose ``step`` was replaced on the instance (a caller that
+    watches the actions) takes the generic path, so that the replacement
+    sees every step."""
 
     def __init__(self, env: Env, offset: int = 0,
                  total: Optional[int] = None):
@@ -44,6 +49,9 @@ class AutoResetEnv:
              generator: torch.Generator = None
              ) -> Tuple[object, torch.Tensor, torch.Tensor, torch.Tensor,
                         Dict[str, torch.Tensor]]:
+        fused = getattr(self.env, "step_autoreset", None)
+        if fused is not None and "step" not in vars(self.env):
+            return fused(state, action, generator, self.offset, self.total)
         s2, obs2, reward, done, info = self.env.step(state, action)
         rs, robs = self.reset(action.shape[0], generator)
         env_new = _tree_where(done, rs, s2)

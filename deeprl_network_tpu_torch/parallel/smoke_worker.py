@@ -23,8 +23,8 @@ The rank and the world come from torchrun's variables (``RANK``,
 Each rank writes ``DIR/rank<r>.npz`` (final params ``p<i>``, per-env fields
 ``<field><j>``, the sampled ``actions`` [updates x T, B, N], per-update
 ``loss``) and prints ONE JSON line: metrics and wall time per update, the
-LSTM cell's launch counts, a digest of the params, the gradient
-all-reduce's size, calls and time. Any failure exits non-zero.
+kernels' launch counts (cell and env step), a digest of the params, the
+gradient all-reduce's size, calls and time. Any failure exits non-zero.
 """
 
 from __future__ import annotations
@@ -50,7 +50,7 @@ from deeprl_network_tpu_torch.main import init_env
 from deeprl_network_tpu_torch.models.policies import (
     init_policy_params, tree_leaves, tree_unflatten,
 )
-from deeprl_network_tpu_torch.ops import lstm_cell
+from deeprl_network_tpu_torch.ops import lstm_cell, network_env
 from deeprl_network_tpu_torch.parallel import distributed
 from deeprl_network_tpu_torch.parallel.train import make_parallel_a2c
 from deeprl_network_tpu_torch.utils.checkpoint import CheckpointManager
@@ -111,22 +111,28 @@ def run(spec: dict, device: str, out_dir: str) -> dict:
     if spec.get("gumbel"):
         gumbel = np.load(spec["gumbel"])["gumbel"][:, :, r * b:(r + 1) * b]
 
-    # record the sampled actions at the env, and the size of every
-    # gradient all-reduce at the collective
+    # record the sampled actions at the env (at its fused auto-reset step
+    # where it has one), and the size of every gradient all-reduce at the
+    # collective
     actions, reduced = [], []
-    env_step, reduce_mean = env.step, distributed.all_reduce_mean
+    step_name = "step_autoreset" if hasattr(env, "step_autoreset") \
+        else "step"
+    env_step, reduce_mean = getattr(env, step_name), \
+        distributed.all_reduce_mean
 
-    def recording_step(state, action):
+    def recording_step(state, action, *rest):
         actions.append(action.to(torch.uint8))
-        return env_step(state, action)
+        return env_step(state, action, *rest)
 
     def counting_reduce(tensors):
         reduced.append(sum(t.numel() for t in tensors))
         return reduce_mean(tensors)
 
-    env.step, distributed.all_reduce_mean = recording_step, counting_reduce
-    for k in lstm_cell.LAUNCHES:
-        lstm_cell.LAUNCHES[k] = 0
+    setattr(env, step_name, recording_step)
+    distributed.all_reduce_mean = counting_reduce
+    for counts in (lstm_cell.LAUNCHES, network_env.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
     metrics, update_s = [], []
     try:
         for u in range(spec.get("updates", 1)):
@@ -138,8 +144,10 @@ def run(spec: dict, device: str, out_dir: str) -> dict:
             update_s.append(time.perf_counter() - t0)
             metrics.append({k: float(v) for k, v in m.items()})
     finally:
-        env.step, distributed.all_reduce_mean = env_step, reduce_mean
-    launches = {k: v for k, v in lstm_cell.LAUNCHES.items() if v}
+        delattr(env, step_name)
+        distributed.all_reduce_mean = reduce_mean
+    launches = {k: v for k, v in {**lstm_cell.LAUNCHES,
+                                  **network_env.LAUNCHES}.items() if v}
     if len(reduced) != len(metrics):
         raise AssertionError(f"{len(reduced)} gradient all-reduces in "
                              f"{len(metrics)} updates")
