@@ -20,10 +20,13 @@ pre-step state after the step.
 
 ``NetworkEnvTables`` holds both forms of the static tables: the dense ones
 the twin multiplies by (``gate``, ``route``, ``node_lane_mask``, ...) and
-the sparse ones the kernel walks (route rows in CSR for ``space``, route
-columns in CSC for ``routed``, each lane's delay slot, owning node and gate
-row, each node's lane list). The sparse ones lie in one int32 and one f32
-tensor (``ints``, ``floats``); their named fields are views of those.
+the sparse ones the kernel reads (each lane's route row for ``space`` and
+route column for ``routed`` as ``PAIRS`` (index, value) pairs, each lane's
+delay slot, owning node and gate row, each node's lane list). The sparse
+ones lie in one int32 and one f32 tensor (``ints``, ``floats``); their named
+fields are views of those. ``launch_shape`` picks the kernel's lanes a
+thread and threads a block, ``occupancy`` reads what the card makes of
+them.
 """
 
 from __future__ import annotations
@@ -35,7 +38,6 @@ import numpy as np
 import torch
 
 from deeprl_network_tpu_torch.ops import _build
-from deeprl_network_tpu_torch.ops.lstm_cell import _carve
 
 # kernel launches by name, counted by the wrapper where it launches
 LAUNCHES = {"network_env_step": 0}
@@ -48,16 +50,18 @@ _OBJECTIVES = {"queue": 0, "wait": 1}      # anything else: hybrid (2)
 # configuration's integers
 _DIMS = ("L", "M", "P", "D", "W", "T_dem", "use_queue", "use_wait",
          "use_phase",
-         "row_ptr", "row_col", "col_ptr", "col_row", "lane_slot", "lane_node",
-         "node_ptr", "node_lane", "gather32", "phase_col", "n_valid32",
-         "row_val", "col_val", "route_out", "entry", "demand", "lane_gate",
-         "gmask",
+         "pair_row", "pair_col", "lane_slot", "lane_node", "node_ptr",
+         "node_lane", "gather32", "phase_col", "n_valid32",
+         "pair_row_val", "pair_col_val", "route_out", "entry", "demand",
+         "lane_gate", "gmask",
          "episode_steps", "control_interval_sec", "yellow_interval_sec",
          "objective")
+PAIRS = 3    # nonzeros of a route row or column the kernel takes, at most
 # the kernel's Scalars struct, field for field
 _SCALARS = ("lane_capacity", "sat_flow", "norm_wave", "clip_wave",
             "norm_wait", "clip_wait", "coef_wait")
 _lib: Optional[ctypes.CDLL] = None
+_raw_stream = None
 
 
 class EnvScalars(NamedTuple):
@@ -86,12 +90,40 @@ class EnvScalars(NamedTuple):
 
 
 def _csr(mat: np.ndarray):
-    """(row pointers, column indices, values) of ``mat``'s nonzeros, each
-    row's in ascending column order."""
+    """(row pointers, column indices) of ``mat``'s nonzeros, each row's in
+    ascending column order."""
     rows, cols = np.nonzero(mat)
     ptr = np.zeros(mat.shape[0] + 1, np.int64)
     np.add.at(ptr, rows + 1, 1)
-    return np.cumsum(ptr), cols, mat[rows, cols]
+    return np.cumsum(ptr), cols
+
+
+def _pairs(mat: np.ndarray, what: str):
+    """[PAIRS, n] column indices and values of each row's nonzeros of
+    ``mat`` [n, n'] in ascending column order, padded with index 0 and value
+    0 (a padded term adds an exact 0). Raises if a row has more than
+    ``PAIRS``."""
+    nnz = (mat != 0).sum(1)
+    if nnz.max(initial=0) > PAIRS:
+        raise ValueError(f"{what} {int(np.argmax(nnz))} has {int(nnz.max())} "
+                         f"nonzeros; the kernel takes at most {PAIRS}")
+    idx = np.zeros((PAIRS, mat.shape[0]), np.int64)
+    val = np.zeros((PAIRS, mat.shape[0]), np.float32)
+    for r in range(mat.shape[0]):
+        cols = np.nonzero(mat[r])[0]
+        idx[:len(cols), r] = cols
+        val[:len(cols), r] = mat[r, cols]
+    return idx, val
+
+
+def launch_shape(L: int, lanes: Optional[int] = None):
+    """(lanes a thread, threads a block) of the kernel for ``L`` lanes: by
+    default one lane a thread up to 160 lanes, two up to 2,048, then as few
+    as fit 1,024 threads; lane l belongs to thread l % threads. The card
+    holds six blocks of up to 160 threads an SM (csrc/network_env.cu)."""
+    if lanes is None:
+        lanes = 1 if L <= 160 else 2 if L <= 2048 else -(-L // 1024)
+    return lanes, (-(-L // lanes) + 31) // 32 * 32
 
 
 class NetworkEnvTables:
@@ -102,12 +134,13 @@ class NetworkEnvTables:
     ``phase_in_obs``), ``node_lane_mask`` [M, L], ``delay`` [L] (link
     travel seconds, >= 1) and the obs channels.
 
-    The kernel takes two simplifications that hold on every topology the
+    The kernel takes three simplifications that hold on every topology the
     port builds (the 3x3, 5x5 and 10x10 grids and Monaco-28); the
     constructor raises on a topology that breaks them: each lane is in
-    exactly one node's lane list, and ``phase_gate[m, :, l]`` is zero
-    unless lane l is in node m's list. The lane gate and the yellow switch
-    are then per-lane gathers."""
+    exactly one node's lane list, ``phase_gate[m, :, l]`` is zero unless
+    lane l is in node m's list (the lane gate and the yellow switch are
+    then per-lane gathers), and no route row or column has more than
+    ``PAIRS`` nonzeros (a lane's pairs fit its registers)."""
 
     def __init__(self, topo, gather: np.ndarray, gmask: np.ndarray,
                  phase_place: Optional[np.ndarray],
@@ -151,18 +184,18 @@ class NetworkEnvTables:
                 raise ValueError("phase_place is not a one-hot placement "
                                  "after each node's lane features")
         route = np.asarray(topo.route, np.float32)
-        row_ptr, row_col, row_val = _csr(route)
-        col_ptr, col_row, col_val = _csr(route.T)
-        node_ptr, node_lane, _ = _csr(node_lane_mask)
+        pair_row, pair_row_val = _pairs(route, "route row")
+        pair_col, pair_col_val = _pairs(route.T, "route column")
+        node_ptr, node_lane = _csr(node_lane_mask)
         # route_out in the twin's f32 sum order, one copy for both paths
         route_out = torch.as_tensor(route).sum(1).numpy()
-        ints = dict(row_ptr=row_ptr, row_col=row_col, col_ptr=col_ptr,
-                    col_row=col_row, lane_slot=delay - 1,
-                    lane_node=lane_node, node_ptr=node_ptr,
-                    node_lane=node_lane, gather32=gather,
+        ints = dict(pair_row=pair_row, pair_col=pair_col,
+                    lane_slot=delay - 1, lane_node=lane_node,
+                    node_ptr=node_ptr, node_lane=node_lane, gather32=gather,
                     phase_col=phase_col, n_valid32=n_valid)
-        floats = dict(row_val=row_val, col_val=col_val, route_out=route_out,
-                      entry=topo.entry_lane, demand=topo.demand,
+        floats = dict(pair_row_val=pair_row_val, pair_col_val=pair_col_val,
+                      route_out=route_out, entry=topo.entry_lane,
+                      demand=topo.demand,
                       lane_gate=topo.phase_gate[lane_node, :, np.arange(L)],
                       gmask=gmask)
         self.ints, self._int_off = self._pack(ints, np.int32)
@@ -182,7 +215,9 @@ class NetworkEnvTables:
         self.gather = torch.as_tensor(gather, dtype=torch.int64,
                                       device=device)
         self.phase_place = None if phase_place is None else f32(phase_place)
+        self.lanes, self.threads = launch_shape(L)
         self._c_args: Dict[EnvScalars, tuple] = {}
+        self._inputs: Dict[tuple, tuple] = {}
 
     def _pack(self, arrays, dtype):
         """One device tensor of numpy ``dtype`` holding ``arrays`` one after
@@ -221,6 +256,22 @@ class NetworkEnvTables:
             scal = (ctypes.c_float * len(_SCALARS))(
                 *(getattr(scalars, k) for k in _SCALARS))
             got = self._c_args[scalars] = (dims, scal)
+        return got
+
+    def inputs(self, B: int, with_q0: bool):
+        """The kernel's inputs for B rows, (name, shape, dtype) each, in the
+        order ``_check_cuda`` reads them (kept per (B, ``with_q0``))."""
+        got = self._inputs.get((B, with_q0))
+        if got is None:
+            L, M, D = self.L, self.M, self.D
+            f32, i64 = torch.float32, torch.int64
+            got = (("queue", (B, L), f32), ("transit", (B, D, L), f32),
+                   ("wait", (B, L), f32), ("prev_phase", (B, M), i64),
+                   ("t", (B,), i64), ("done", (B,), torch.bool),
+                   ("dropped", (B,), f32), ("action", (B, M), i64))
+            if with_q0:
+                got += (("reset_q0", (B, L), f32),)
+            self._inputs[(B, with_q0)] = got
         return got
 
 
@@ -362,60 +413,94 @@ def network_env_step_ref(tables: NetworkEnvTables, c: EnvScalars, s,
     return s_new, obs, reward.float(), done, info
 
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (a build of csrc/network_env.cu) with its C entries' argument
+    types set."""
+    lib.network_env_step.argtypes = [ctypes.c_void_p] * 23 \
+        + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.network_env_step.restype = ctypes.c_int
+    lib.network_env_occupancy.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                          ctypes.c_int, ctypes.c_void_p]
+    lib.network_env_occupancy.restype = ctypes.c_int
+    return lib
+
+
 def _kernel() -> ctypes.CDLL:
     """The library, built and loaded at first use."""
-    global _lib
+    global _lib, _raw_stream
     if _lib is None:
-        lib = _build.load("network_env")
-        fn = lib.network_env_step
-        fn.argtypes = [ctypes.c_void_p] * 17 + [ctypes.c_int] * 2 \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _lib = lib
+        # the current stream's handle without a Stream object, where this
+        # PyTorch has the call
+        _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) \
+            or (lambda i: torch.cuda.current_stream(i).cuda_stream)
+        _lib = bind(_build.load("network_env"))
     return _lib
+
+
+def _refuse(tables: NetworkEnvTables, name: str, x: torch.Tensor,
+            shape: tuple, dtype: torch.dtype) -> None:
+    """Raise for the first property of ``x`` the kernel does not take, in
+    the order device, dtype, shape, contiguity."""
+    if x.device != tables.ints.device:
+        raise ValueError(f"network_env_step: {name} on {x.device}, the "
+                         f"tables on {tables.ints.device}")
+    if x.dtype != dtype:
+        raise TypeError(f"network_env_step: {name} is {x.dtype}, the "
+                        f"kernel takes {dtype}")
+    if tuple(x.shape) != shape:
+        raise ValueError(f"network_env_step: {name} has shape "
+                         f"{tuple(x.shape)}, expected {shape}")
+    if not x.is_contiguous():
+        raise ValueError(f"network_env_step: {name} is not contiguous")
 
 
 def _check_cuda(tables: NetworkEnvTables, s, action: torch.Tensor,
                 reset_q0: Optional[torch.Tensor]) -> None:
     """Raise unless every input is a contiguous tensor of the kernel's
-    dtype and shape on the tables' device."""
-    B, L, M, D = action.shape[0], tables.L, tables.M, tables.D
-    f32, i64 = torch.float32, torch.int64
-    want = [("queue", s.queue, (B, L), f32),
-            ("transit", s.transit, (B, D, L), f32),
-            ("wait", s.wait, (B, L), f32),
-            ("prev_phase", s.prev_phase, (B, M), i64),
-            ("t", s.t, (B,), i64),
-            ("done", s.done, (B,), torch.bool),
-            ("dropped", s.dropped, (B,), f32),
-            ("action", action, (B, M), i64)]
-    if reset_q0 is not None:
-        want.append(("reset_q0", reset_q0, (B, L), f32))
-    for name, x, shape, dtype in want:
-        if x.device != tables.ints.device:
-            raise ValueError(f"network_env_step: {name} on {x.device}, the "
-                             f"tables on {tables.ints.device}")
-        if x.dtype != dtype:
-            raise TypeError(f"network_env_step: {name} is {x.dtype}, the "
-                            f"kernel takes {dtype}")
-        if tuple(x.shape) != shape:
-            raise ValueError(f"network_env_step: {name} has shape "
-                             f"{tuple(x.shape)}, expected {shape}")
-        if not x.is_contiguous():
-            raise ValueError(f"network_env_step: {name} is not contiguous")
+    dtype and shape on the tables' device: the state's fields, ``action``,
+    then ``reset_q0`` where given."""
+    want = tables.inputs(action.shape[0], reset_q0 is not None)
+    dev = tables.ints.device
+    for x, (name, shape, dtype) in zip(
+            (s.queue, s.transit, s.wait, s.prev_phase, s.t, s.done,
+             s.dropped, action, reset_q0), want):
+        if (x.device != dev or x.dtype is not dtype or x.shape != shape
+                or not x.is_contiguous()):
+            _refuse(tables, name, x, shape, dtype)
+
+
+def occupancy(tables: NetworkEnvTables, c: EnvScalars,
+              lanes: Optional[int] = None) -> Dict[str, int]:
+    """What the card makes of the kernel's launch for ``tables`` and ``c``
+    (``lanes`` a thread, default ``launch_shape``'s): lanes, threads,
+    registers a thread, blocks an SM, shared bytes a block, local (spilled)
+    bytes a thread. Needs the card."""
+    lib = _kernel()
+    lanes, threads = launch_shape(tables.L, lanes)
+    dims = tables.c_args(c)[0]
+    out = (ctypes.c_int * 4)()
+    err = lib.network_env_occupancy(ctypes.addressof(dims), lanes, threads,
+                                    ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"network_env_occupancy failed: cudaError {err}")
+    return dict(lanes=lanes, threads=threads, registers=out[0],
+                blocks_per_sm=out[1], smem_bytes=out[2], local_bytes=out[3])
 
 
 def network_env_step(tables: NetworkEnvTables, c: EnvScalars, s,
                      action: torch.Tensor,
                      reset_q0: Optional[torch.Tensor] = None,
-                     auto_reset: bool = False):
+                     auto_reset: bool = False, _lanes: Optional[int] = None):
     """One control step of B env rows (see ``network_env_step_ref``):
     launches ``csrc/network_env.cu`` for CUDA tensors, runs the plain twin
     for CPU tensors. Returns (state', obs, reward, done, info); ``state'``
-    has the input state's type. Every output is a new tensor: the state's
-    float leaves are views of one allocation, the observation, reward and
-    info of another (the rollout keeps those for the whole update, so they
-    never hold the state's storage)."""
+    has the input state's type. Every output is a new tensor, a view of one
+    of four allocations: the state's floats, its ints, the two done flags,
+    and the observation, reward and info (the rollout keeps those for the
+    whole update, so they never hold the state's storage). Four
+    allocations and their views cost the host less than one allocation an
+    output. ``_lanes`` times another lanes a thread than
+    ``launch_shape``'s."""
     if action.device.type == "cpu":
         return network_env_step_ref(tables, c, s, action, reset_q0,
                                     auto_reset)
@@ -424,36 +509,43 @@ def network_env_step(tables: NetworkEnvTables, c: EnvScalars, s,
                          f"{action.device}")
     _check_cuda(tables, s, action, reset_q0)
     lib = _kernel()
+    dev = tables.ints.device
+    if torch.cuda.current_device() != dev.index:
+        with torch.cuda.device(dev):
+            return network_env_step(tables, c, s, action, reset_q0,
+                                    auto_reset, _lanes)
+    B, L, M, D, W = action.shape[0], tables.L, tables.M, tables.D, tables.W
+    lanes, threads = (tables.lanes, tables.threads) if _lanes is None \
+        else launch_shape(L, _lanes)
     dims, scal = tables.c_args(c)
-    B, L, M, D, W, dev = (action.shape[0], tables.L, tables.M, tables.D,
-                          tables.W, action.device)
-    queue, transit, wait, dropped = _carve(
-        torch.empty(B * (L * (D + 2) + 1), dtype=torch.float32,
-                    device=dev),
-        [(B, L), (B, D, L), (B, L), (B,)])
-    prev_phase, t = _carve(torch.empty(B * (M + 1), dtype=torch.int64,
-                                       device=dev), [(B, M), (B,)])
-    done_state = torch.empty(B, dtype=torch.bool, device=dev)
-    done = torch.empty(B, dtype=torch.bool, device=dev)
-    obs, reward, info = _carve(
-        torch.empty(B * (M * W + M + 6), dtype=torch.float32, device=dev),
-        [(B, M, W), (B, M), (6, B)])
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.network_env_step(
-            ctypes.addressof(dims), ctypes.addressof(scal),
-            tables.ints.data_ptr(), tables.floats.data_ptr(),
-            s.queue.data_ptr(), s.transit.data_ptr(), s.wait.data_ptr(),
-            s.prev_phase.data_ptr(), s.t.data_ptr(), s.dropped.data_ptr(),
-            action.data_ptr(),
-            None if reset_q0 is None else reset_q0.data_ptr(),
-            queue.data_ptr(), prev_phase.data_ptr(), done_state.data_ptr(),
-            done.data_ptr(), obs.data_ptr(), B, int(auto_reset), stream)
+    queue, transit, wait, dropped = torch.empty(
+        B * (L * (D + 2) + 1), dtype=torch.float32, device=dev
+    ).split_with_sizes((B * L, B * D * L, B * L, B))
+    prev_phase, t = torch.empty(
+        B * (M + 1), dtype=torch.int64, device=dev).split_with_sizes((B * M, B))
+    done_state, done = torch.empty(
+        2 * B, dtype=torch.bool, device=dev).split_with_sizes((B, B))
+    obs, reward, *info = torch.empty(
+        B * (M * W + M + len(INFO_KEYS)), dtype=torch.float32, device=dev
+    ).split_with_sizes((B * M * W, B * M) + (B,) * len(INFO_KEYS))
+    err = lib.network_env_step(
+        ctypes.addressof(dims), ctypes.addressof(scal),
+        tables.ints.data_ptr(), tables.floats.data_ptr(),
+        s.queue.data_ptr(), s.transit.data_ptr(), s.wait.data_ptr(),
+        s.prev_phase.data_ptr(), s.t.data_ptr(), s.dropped.data_ptr(),
+        action.data_ptr(),
+        None if reset_q0 is None else reset_q0.data_ptr(),
+        queue.data_ptr(), transit.data_ptr(), wait.data_ptr(),
+        dropped.data_ptr(), prev_phase.data_ptr(), t.data_ptr(),
+        done_state.data_ptr(), done.data_ptr(), obs.data_ptr(),
+        reward.data_ptr(), info[0].data_ptr(), B, int(auto_reset), lanes,
+        threads, _raw_stream(dev.index))
     if err != 0:
         raise RuntimeError(f"network_env_step kernel launch failed: "
                            f"cudaError {err}")
     LAUNCHES["network_env_step"] += 1
-    state = type(s)(queue=queue, transit=transit, wait=wait,
-                    prev_phase=prev_phase, t=t, done=done_state,
-                    dropped=dropped)
-    return state, obs, reward, done, dict(zip(INFO_KEYS, info.unbind(0)))
+    state = type(s)(queue=queue.view(B, L), transit=transit.view(B, D, L),
+                    wait=wait.view(B, L), prev_phase=prev_phase.view(B, M),
+                    t=t, done=done_state, dropped=dropped)
+    return (state, obs.view(B, M, W), reward.view(B, M), done,
+            dict(zip(INFO_KEYS, info)))

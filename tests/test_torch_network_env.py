@@ -1,12 +1,12 @@
 """The ATSC env-step kernel (``ops/network_env.py``, ``csrc/network_env.cu``)
 without a card, and on one.
 
-On the CPU: the tables' assumptions on every topology the kernel takes; a
-numpy emulation of the kernel's own algorithm over ``NetworkEnvTables`` (the
-CSR/CSC gathers, the transit ring, the fixed-order sums, the auto-reset
-select, then the observation of the selected state) held step for step
-against the JAX engine, at the bars of ``tests/test_torch_grid_env.py``; and
-the wrapper's dispatch. Card-only cases (``needs_cuda``) hold the kernel
+On the CPU: the tables' assumptions and the launch shapes on every topology
+the kernel takes; a numpy emulation of the kernel's own algorithm over
+``NetworkEnvTables`` (the padded route pairs, the transit ring, the
+fixed-order sums, the auto-reset select, then the observation of the
+selected state) held step for step against the JAX engine, at the bars of
+``tests/test_torch_grid_env.py``; the wrapper's dispatch and its refusals. Card-only cases (``needs_cuda``) hold the kernel
 against its plain twin; JAX is imported only in fixtures, so they run on a
 machine without it (``python -m pytest --noconftest -q
 tests/test_torch_network_env.py -k cuda``)."""
@@ -60,11 +60,29 @@ def make_env(name, device="cpu", **kw):
 
 # ---- (i) the tables ----
 
+def _shared_bytes(L, M, D, substeps, threads):
+    """Shared memory of one block as the kernel lays it out (its Layout):
+    the mbarrier (16 bytes), the transit ring [D, L] twice, queue, wait,
+    three lane-feature rows, each (substep, warp)'s five partial sums, each
+    substep's five sums, two node rows and the clamped actions."""
+    return (16 + 4 * L * (2 * D + 5) + 20 * substeps * (threads // 32 + 1)
+            + 12 * M)
+
+
+# (lanes a thread, threads a block, shared bytes a block) of each topology
+# at five substeps: up to 160 threads a block and 37 KB, six blocks share an
+# SM (228 KB of shared memory, 64 registers a thread)
+SHAPES = {"grid3": (1, 128, 11_424), "grid5": (2, 160, 30_916),
+          "grid10": (2, 608, 123_216), "monaco": (1, 160, 25_224)}
+
+
 @pytest.mark.parametrize("name", TOPOLOGIES)
 def test_tables_hold_the_kernel_assumptions(name):
     """Each lane in exactly one node's list, gated by that node only; route
-    rows and columns of at most 3 nonzeros, in ascending order, equal to
-    the dense route; the per-lane gate rows equal the dense product."""
+    rows and columns of at most 3 nonzeros, in ascending order, padded with
+    (0, 0.0), equal to the dense route; the per-lane gate rows equal the
+    dense product; rows of 16-byte multiples for the bulk copies; the launch
+    shape and its shared memory, the ring taking any D."""
     env = make_env(name, queue_in_obs=True, phase_in_obs=True)
     T, topo = env.tables, env.topo
     L, M = topo.n_lane, topo.n_node
@@ -75,17 +93,26 @@ def test_tables_hold_the_kernel_assumptions(name):
     lane_node = T.lane_node.numpy()
     for m in range(M):
         assert not topo.phase_gate[m][:, lane_node != m].any()
-    for ptr, idx, val, mat in (
-            (T.row_ptr, T.row_col, T.row_val, topo.route),
-            (T.col_ptr, T.col_row, T.col_val, topo.route.T)):
-        ptr, idx, val = ptr.numpy(), idx.numpy(), val.numpy()
-        assert np.diff(ptr).max() <= 3
+    for idx, val, mat in ((T.pair_row, T.pair_row_val, topo.route),
+                          (T.pair_col, T.pair_col_val, topo.route.T)):
+        idx, val = idx.numpy(), val.numpy()
+        assert idx.shape == val.shape == (ne.PAIRS, L) == (3, L)
+        assert ((mat != 0).sum(1) <= 3).all()
         dense = np.zeros_like(mat, dtype=np.float32)
         for r in range(L):
-            cols = idx[ptr[r]:ptr[r + 1]]
-            assert (np.diff(cols) > 0).all()
-            dense[r, cols] = val[ptr[r]:ptr[r + 1]]
+            n = int((val[:, r] != 0).sum())
+            assert (val[:n, r] != 0).all() and (val[n:, r] == 0).all()
+            assert (np.diff(idx[:n, r]) > 0).all() and (idx[n:, r] == 0).all()
+            dense[r, idx[:n, r]] = val[:n, r]
         assert np.array_equal(dense, mat.astype(np.float32))
+    assert (4 * L) % 16 == 0
+    lanes, threads, smem = SHAPES[name]
+    assert ne.launch_shape(L) == (T.lanes, T.threads) == (lanes, threads)
+    assert lanes * threads >= L > lanes * (threads - 32) and threads <= 1024
+    assert _shared_bytes(L, M, T.D, env.scalars.control_interval_sec,
+                         threads) == smem
+    assert threads > 160 or 6 * (smem + 1024) <= 228 * 1024
+    assert smem <= 227 * 1024
     P = topo.phase_gate.shape[1]
     onehots = torch.eye(P)[None].expand(M, P, P)       # every phase p
     for p in range(P):
@@ -99,13 +126,17 @@ def test_tables_hold_the_kernel_assumptions(name):
     assert torch.equal(T.route_out, T.route.sum(1))
 
 
-@pytest.mark.parametrize("fault", ["two lists", "foreign gate"])
+@pytest.mark.parametrize("fault", ["two lists", "foreign gate",
+                                   "four route nonzeros"])
 def test_tables_refuse_a_topology_that_breaks_them(fault):
     cfg = EnvConfig(**_env_kw("grid3"))
     topo = grid.build_grid_topology(cfg, 3)
     if fault == "two lists":
         topo.node_lanes = [list(ls) for ls in topo.node_lanes]
         topo.node_lanes[1].append(topo.node_lanes[0][0])
+    elif fault == "four route nonzeros":
+        topo.route = np.array(topo.route, copy=True)
+        topo.route[0, :4] = 0.25
     else:
         lane = topo.node_lanes[0][0]
         topo.phase_gate = topo.phase_gate.copy()
@@ -128,13 +159,6 @@ def _padded(ptr, idx, val=None):
         I[r, :k] = idx[ptr[r]:ptr[r + 1]]
         V[r, :k] = 1.0 if val is None else val[ptr[r]:ptr[r + 1]]
     return I, V
-
-
-def _launch_shape(L):
-    """(threads a block, lanes a thread) as the kernel's C entry picks
-    them."""
-    per = -(-L // 1024)
-    return (-(-L // per) + 31) // 32 * 32, per
 
 
 def _block_sum(v, threads, per):
@@ -164,9 +188,9 @@ def emulate_step(T, c, s, action, q0=None, auto_reset=False):
     L, M, D = T.L, T.M, T.D
     B = action.shape[0]
     cap, sat = F(c.lane_capacity), F(c.sat_flow)
-    threads, per = _launch_shape(L)
-    rows = _padded(A["row_ptr"], A["row_col"], A["row_val"])
-    cols = _padded(A["col_ptr"], A["col_row"], A["col_val"])
+    per, threads = ne.launch_shape(L)
+    rows = A["pair_row"].T, A["pair_row_val"].T
+    cols = A["pair_col"].T, A["pair_col_val"].T
     nodes = _padded(A["node_ptr"], A["node_lane"])
     ro, lanes = A["route_out"], np.arange(L)
     act = np.minimum(np.maximum(action, 0), A["n_valid32"] - 1)
@@ -468,6 +492,100 @@ def test_autoreset_wrapper_takes_the_fused_step():
     assert torch.equal(g1.get_state(), g2.get_state())
 
 
+def _refusal_in_full(tables, s, action, reset_q0):
+    """The wrapper's input check in its plain form, field by field: device,
+    dtype, shape, contiguity. Its faster check must make the same refusals
+    with the same exceptions and messages."""
+    B, L, M, D = action.shape[0], tables.L, tables.M, tables.D
+    f32, i64 = torch.float32, torch.int64
+    want = [("queue", s.queue, (B, L), f32),
+            ("transit", s.transit, (B, D, L), f32),
+            ("wait", s.wait, (B, L), f32),
+            ("prev_phase", s.prev_phase, (B, M), i64),
+            ("t", s.t, (B,), i64),
+            ("done", s.done, (B,), torch.bool),
+            ("dropped", s.dropped, (B,), f32),
+            ("action", action, (B, M), i64)]
+    if reset_q0 is not None:
+        want.append(("reset_q0", reset_q0, (B, L), f32))
+    for name, x, shape, dtype in want:
+        if x.device != tables.ints.device:
+            raise ValueError(f"network_env_step: {name} on {x.device}, the "
+                             f"tables on {tables.ints.device}")
+        if x.dtype != dtype:
+            raise TypeError(f"network_env_step: {name} is {x.dtype}, the "
+                            f"kernel takes {dtype}")
+        if tuple(x.shape) != shape:
+            raise ValueError(f"network_env_step: {name} has shape "
+                             f"{tuple(x.shape)}, expected {shape}")
+        if not x.is_contiguous():
+            raise ValueError(f"network_env_step: {name} is not contiguous")
+
+
+def _spoil(x, fault):
+    """``x`` with one property the kernel does not take."""
+    if fault == "dtype":
+        return x.to({torch.float32: torch.float64, torch.int64: torch.int32,
+                     torch.bool: torch.uint8}[x.dtype])
+    if fault == "shape":
+        return x[..., :-1].contiguous()
+    if fault == "strides":    # the same shape, not contiguous
+        if x.ndim == 1:
+            return torch.stack([x, x], 1)[:, 0]
+        return x.transpose(-1, -2).contiguous().transpose(-1, -2)
+    return x.to("meta")        # another device
+
+
+FIELDS = ("queue", "transit", "wait", "prev_phase", "t", "done", "dropped",
+          "action", "reset_q0")
+
+
+@pytest.mark.parametrize("fault", ["dtype", "shape", "strides", "device"])
+@pytest.mark.parametrize("field", FIELDS)
+def test_input_check_refuses_what_it_refused(field, fault):
+    """Each input the kernel does not take, field by field: the wrapper's
+    check raises the plain check's exception with its message, and passes
+    every input that one passes."""
+    env = make_env("grid3", init_density=0.5)
+    gen = torch.Generator().manual_seed(0)
+    st, _ = env.reset(3, gen)
+    args = dict(st._asdict(), action=torch.as_tensor(
+        np.random.default_rng(0).integers(0, 5, (3, 9))),
+        reset_q0=env._reset_queue(3, gen))
+    for q0 in (args["reset_q0"], None):
+        ne._check_cuda(env.tables, st, args["action"], q0)
+        _refusal_in_full(env.tables, st, args["action"], q0)
+    args[field] = _spoil(args[field], fault)
+    call = (env.tables, NetworkState(*(args[k] for k in FIELDS[:7])),
+            args["action"], args["reset_q0"])
+    with pytest.raises((TypeError, ValueError)) as want:
+        _refusal_in_full(*call)
+    with pytest.raises(want.type) as got:
+        ne._check_cuda(*call)
+    assert str(got.value) == str(want.value)
+    assert fault != "device" or "on meta, the tables on cpu" in str(got.value)
+
+
+def test_env_probes_edit_the_kernel_source():
+    """``chip_smoke.py --tune`` builds copies of the kernel source with one
+    thing taken out or put in: each edit finds its line in the source."""
+    import os
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, root)
+    import chip_smoke
+    with open(os.path.join(root, chip_smoke.ENV_SOURCE)) as fh:
+        src = fh.read()
+    probes = chip_smoke.env_probe_sources(src)
+    assert set(probes) == {"empty", "no_state_copies", "stamps"}
+    assert "if (a.B > 0) return;" in probes["empty"]
+    assert "bulk_load" not in probes["no_state_copies"].split(
+        "network_env_kernel(const Args a)")[1]
+    assert probes["stamps"].count("clock64()") == 7
+    with pytest.raises(ValueError):
+        chip_smoke.env_probe_sources(src.replace("int head = 0;", ""))
+
+
 # ---- (iv) on the card ----
 
 # (topology, env options, B, steps, auto-reset, init_density rows)
@@ -475,6 +593,7 @@ CUDA_CASES = {
     "grid25_across_reset": ("grid5", dict(episode_length_sec=100), 64, 30,
                             True),
     "grid100": ("grid10", {}, 16, 10, True),
+    "grid100_b128": ("grid10", {}, 128, 8, True),
     "obs_channels_hybrid": ("grid5", dict(
         queue_in_obs=True, phase_in_obs=True, objective="hybrid",
         episode_length_sec=40), 32, 12, True),
@@ -572,3 +691,56 @@ def test_cuda_generator_state_equals_the_twins_after_30_steps():
     assert torch.equal(gens[0].get_state(), gens[1].get_state())
     for k in ("t", "done", "prev_phase"):
         assert torch.equal(getattr(states[0], k), getattr(states[1], k)), k
+
+
+@needs_cuda
+def test_cuda_kernel_is_deterministic_and_takes_one_lane_a_thread():
+    """Two calls on the same inputs are equal bit for bit (no atomics);
+    the 5x5 grid at one lane a thread (320 threads, the shape timed beside
+    the default) holds to the twin too."""
+    env = make_env("grid5", device="cuda", init_density=0.5)
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    st, _ = env.reset(96, gen)
+    for t in range(12):
+        a = torch.randint(0, 5, (96, 25), device="cuda", generator=gen)
+        q0 = env._reset_queue(96, gen)
+        one = ne.network_env_step(env.tables, env.scalars, st, a, q0, True)
+        two = ne.network_env_step(env.tables, env.scalars, st, a, q0, True)
+        for name, x, y in _pairs(one, two):
+            assert torch.equal(x, y), f"step {t} {name}"
+        lane = ne.network_env_step(env.tables, env.scalars, st, a, q0, True,
+                                   _lanes=1)
+        want = ne.network_env_step_ref(env.tables, env.scalars, st, a, q0,
+                                       True)
+        _cuda_close(lane, want, f"one lane a thread, step {t}")
+        st = one[0]
+
+
+@needs_cuda
+def test_cuda_kernel_refuses_rows_the_bulk_copies_cannot_take():
+    """A state row that does not start on 16 bytes: the launch is refused
+    and raises, nothing is counted."""
+    env = make_env("grid5", device="cuda")
+    st, _ = env.reset(4)
+    a = torch.zeros((4, 25), dtype=torch.int64, device="cuda")
+    shifted = torch.zeros(4 * 300 + 1, device="cuda")[1:].view(4, 300)
+    before = ne.LAUNCHES["network_env_step"]
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        ne.network_env_step(env.tables, env.scalars,
+                            st._replace(queue=shifted), a)
+    assert ne.LAUNCHES["network_env_step"] == before
+
+
+@needs_cuda
+@pytest.mark.parametrize("name", TOPOLOGIES)
+def test_cuda_launch_shape_fits_the_card(name):
+    """What the card makes of each topology's launch: the shape and shared
+    memory of ``SHAPES``, no spilled registers, six blocks an SM up to 160
+    threads a block."""
+    env = make_env(name, device="cuda")
+    lanes, threads, smem = SHAPES[name]
+    got = ne.occupancy(env.tables, env.scalars)
+    assert (got["lanes"], got["threads"], got["smem_bytes"]) == (
+        lanes, threads, smem)
+    assert got["local_bytes"] == 0, got
+    assert threads > 160 or got["blocks_per_sm"] >= 6, got
