@@ -33,9 +33,7 @@ Phases (any failure raises, exits non-zero and prints no result line):
      beside it; times of the grid and Monaco at B=768, 32 and 1 and of the
      10x10 grid at B=128 from graph replays (warm and cold), the host's time
      a call and the twin's, and the bound, each with its launch shape,
-     registers a thread and blocks an SM; the 5x5 grid's other launch shape
-     (one lane a thread) timed beside its default at B=768 and 1 (with
-     ``--tune`` also the kernel's probes, ``probe_env_kernel``);
+     registers a thread and blocks an SM;
   5. reference: a small f32 train step on the card against the same step on
      the CPU (plain twins, held against the JAX package by the CPU tests),
      and the same at num_fc=64, num_lstm=256 (a cell wider than 256);
@@ -500,9 +498,6 @@ ENV_CASES = (
 ENV_TIMED = (("grid25", "grid5", (768, 32, 1)),
              ("monaco", "monaco", (768, 32, 1)),
              ("grid100", "grid10", (128,)))
-# the 5x5 grid's other launch shape, one lane a thread (320 threads), timed
-# beside the default at these B
-ENV_TUNE_B = (768, 1)
 
 
 def make_env(topology, env_kw, device="cuda"):
@@ -629,16 +624,6 @@ def check_env_kernel(card):
                    "bytes": nbytes, "flops": flops, "bound_ms": bound_ms,
                    "bound_by": bound_by, **shape, "card": card}
             log("env_kernel_time " + json.dumps(row))
-            if name == "grid25" and B in ENV_TUNE_B:
-                one = lambda: ne.network_env_step(T, c, state, a, None, auto,
-                                                  _lanes=1)
-                max_err(env_outputs(one()), env_outputs(plain()), 1e-5,
-                        ENV_NAMES)
-                log("env_kernel_tune " + json.dumps({
-                    "shape": f"{name} b{B}", "ms": graph_ms(one),
-                    "cold_ms": graph_ms(one, flush=flush),
-                    "default_ms": row["ms"], "bound_ms": bound_ms,
-                    **ne.occupancy(T, c, lanes=1), "card": card}))
             if (name, B) == ("grid25", 768):
                 entry = dict(max_abs_err=worst, ms=row["ms"],
                              plain_ms=row["plain_ms"], bound_ms=bound_ms,
@@ -646,115 +631,6 @@ def check_env_kernel(card):
         del env
     log(f"env kernel: phase {time.perf_counter() - t_phase:.1f} s")
     return entry
-
-
-# Probes of the env kernel (--tune): copies of its source with one thing taken
-# out or put in, each built beside it and timed through the same wrapper.
-# "empty" returns at once (what a launch in a graph costs by itself);
-# "no_state_copies" leaves out the bulk copies of the state in and out (the
-# share of the state's bytes in the time; its outputs are wrong and not held
-# to the twin); "stamps" records clock64() at the phase boundaries of block 0:
-# start, actions clamped, state arrived, substeps done, features written,
-# tail done, stores read.
-_STAMP_AT = ("  const Layout o = layout(d, warps);\n",
-             "  __syncthreads();  // act, and the mbarrier's init\n",
-             "  int head = 0;\n",
-             "  const long long t_new = t_in + 1;\n",
-             "  fence_proxy_async();\n  __syncthreads();\n",
-             "  // info, and dropped: the substeps in order\n",
-             '  if (tid == 0 && !reset) asm volatile('
-             '"cp.async.bulk.wait_group.read 0;\\n" ::: "memory");\n')
-_STATE_COPIES = (
-    ("    bulk_load(ring, a.tr_in + (size_t)b * D * L, D * row_bytes, bar);\n"
-     "    bulk_load(q, a.q_in + (size_t)b * L, row_bytes, bar);\n"
-     "    bulk_load(w, a.w_in + (size_t)b * L, row_bytes, bar);\n", ""),
-    ("    mbar_expect(bar, (D + 2) * row_bytes);\n", "    mbar_expect(bar, 0);\n"),
-    ("      bulk_store(a.tr_out + row * D, ring + head * L, D * row_bytes);\n"
-     "      bulk_store(a.q_out + row, q, row_bytes);\n"
-     "      bulk_store(a.w_out + row, w, row_bytes);\n", ""))
-
-
-def env_probe_sources(src: str) -> dict:
-    """{probe: source} for ``ENV_SOURCE``'s text ``src``; raises where a
-    line a probe edits is not in it."""
-    def patch(pairs):
-        out = src
-        for old, new in pairs:
-            if out.count(old) != 1:
-                raise ValueError(f"env probe: {old!r} is not in the source "
-                                 f"once")
-            out = out.replace(old, new)
-        return out
-    stamps = [(at, at + f"  if (blockIdx.x == 0 && threadIdx.x == 0) "
-                    f"g_stamps[{i}] = clock64();\n")
-              for i, at in enumerate(_STAMP_AT)]
-    stamps += [("namespace {\n", "namespace {\n__device__ long long "
-                "g_stamps[7];\n"),
-               ('extern "C" int network_env_occupancy',
-                'extern "C" int network_env_stamps(long long* out) {\n'
-                '  return (int)cudaMemcpyFromSymbol(out, g_stamps, '
-                'sizeof(g_stamps));\n}\n\n'
-                'extern "C" int network_env_occupancy')]
-    return {"empty": patch([("  extern __shared__ __align__(16)",
-                             "  if (a.B > 0) return;\n"
-                             "  extern __shared__ __align__(16)")]),
-            "no_state_copies": patch(_STATE_COPIES),
-            "stamps": patch(stamps)}
-
-
-def probe_env_kernel(card):
-    """Times of the env kernel and its probes (``env_probe_sources``) at the
-    5x5 grid's and Monaco's B=768 and B=1, from graph replays; the stamps'
-    cycles from the start of block 0."""
-    import ctypes
-    import shutil
-    import torch
-    from deeprl_network_tpu_torch.ops import _build
-    from deeprl_network_tpu_torch.ops import network_env as ne
-    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                           ENV_SOURCE)) as fh:
-        probes = env_probe_sources(fh.read())
-    kernel = ne._kernel()
-    libs = {"kernel": kernel}
-    tmp = tempfile.mkdtemp(prefix="env_probe_")
-    try:
-        for name, text in probes.items():
-            src, lib = os.path.join(tmp, f"{name}.cu"), \
-                os.path.join(tmp, f"lib{name}.so")
-            with open(src, "w") as fh:
-                fh.write(text)
-            subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", lib,
-                            src], check=True)
-            libs[name] = ne.bind(ctypes.CDLL(lib))
-        for topology in ("grid5", "monaco"):
-            env = make_env(topology, {})
-            T, c, M = env.tables, env.scalars, env.topo.n_node
-            for B in (768, 1):
-                auto = B > 1
-                gen = torch.Generator(device="cuda").manual_seed(1)
-                state, _ = env.reset(B, gen)
-                acts = torch.randint(0, env.spec.n_a_max, (31, B, M),
-                                     device="cuda", generator=gen)
-                for t in range(30):
-                    state = ne.network_env_step_ref(T, c, state, acts[t],
-                                                    None, auto)[0]
-                fn = lambda: ne.network_env_step(T, c, state, acts[30], None,
-                                                 auto)
-                row = {"shape": f"{topology} b{B}"}
-                for name, lib in libs.items():
-                    ne._lib = lib
-                    row[f"{name}_ms"] = graph_ms(fn)
-                    if name == "stamps":
-                        fn()
-                        torch.cuda.synchronize()
-                        got = (ctypes.c_longlong * 7)()
-                        if lib.network_env_stamps(got) != 0:
-                            raise RuntimeError("env probe: no stamps")
-                        row["stamps_cycles"] = [v - got[0] for v in got]
-                log("env_kernel_probe " + json.dumps({**row, "card": card}))
-    finally:
-        ne._lib = kernel
-        shutil.rmtree(tmp)
 
 
 def make_flagship(device, env_kw=None, agent="ma2c_nc", **overrides):
@@ -1869,8 +1745,7 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="also profile one flagship train_step")
     ap.add_argument("--tune", action="store_true",
-                    help="also time the tensor-core kernels on other grids, "
-                         "and the env kernel's probes")
+                    help="also time the tensor-core kernels on other grids")
     ap.add_argument("--kernels-only", action="store_true",
                     help="stop after the kernels phase, with exit code 2 "
                          "and no result line (a short first run of a new "
@@ -1903,7 +1778,6 @@ def main(argv=None) -> int:
     env_entry = check_env_kernel(card)
     if args.tune:
         tune_kernels()
-        probe_env_kernel(card)
     if args.kernels_only:
         return 2
     check_reference("reference", small_grid, 5)

@@ -606,9 +606,8 @@ __global__ void __launch_bounds__(MAXT, MINB) network_env_kernel(const Args a) {
 using KernelFn = void (*)(const Args);
 
 // The instance for (lanes a thread, threads a block) and the row's (D, L): six blocks an
-// SM up to 320 threads (at most 64 registers a thread at 160, 32 at 320), one instance
-// built for each topology of the port and one for any. One lane a thread at 320 threads
-// is the 5x5 grid's other shape (chip_smoke.py times it beside the default).
+// SM up to 160 threads (at most 64 registers a thread), one instance built for each
+// topology of the port and one for any.
 KernelFn pick(int lanes, int threads, int D, int L) {
   if (lanes == 1 && threads <= 160) {
     if (D == 10 && L == 108) return network_env_kernel<1, 160, 6, 10, 108>;  // 3x3 grid
@@ -616,8 +615,6 @@ KernelFn pick(int lanes, int threads, int D, int L) {
     return network_env_kernel<1, 160, 6, 0, 0>;
   }
   const bool grid5 = D == 10 && L == 300, grid10 = D == 10 && L == 1200;
-  if (lanes == 1 && threads <= 320)
-    return grid5 ? network_env_kernel<1, 320, 6, 10, 300> : network_env_kernel<1, 320, 6, 0, 0>;
   if (lanes <= 2 && threads <= 160)
     return grid5 ? network_env_kernel<2, 160, 6, 10, 300> : network_env_kernel<2, 160, 6, 0, 0>;
   if (lanes <= 2)

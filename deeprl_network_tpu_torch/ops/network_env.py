@@ -61,7 +61,6 @@ PAIRS = 3    # nonzeros of a route row or column the kernel takes, at most
 _SCALARS = ("lane_capacity", "sat_flow", "norm_wave", "clip_wave",
             "norm_wait", "clip_wait", "coef_wait")
 _lib: Optional[ctypes.CDLL] = None
-_raw_stream = None
 
 
 class EnvScalars(NamedTuple):
@@ -116,13 +115,12 @@ def _pairs(mat: np.ndarray, what: str):
     return idx, val
 
 
-def launch_shape(L: int, lanes: Optional[int] = None):
-    """(lanes a thread, threads a block) of the kernel for ``L`` lanes: by
-    default one lane a thread up to 160 lanes, two up to 2,048, then as few
-    as fit 1,024 threads; lane l belongs to thread l % threads. The card
-    holds six blocks of up to 160 threads an SM (csrc/network_env.cu)."""
-    if lanes is None:
-        lanes = 1 if L <= 160 else 2 if L <= 2048 else -(-L // 1024)
+def launch_shape(L: int):
+    """(lanes a thread, threads a block) of the kernel for ``L`` lanes: one
+    lane a thread up to 160 lanes, two up to 2,048, then as few as fit 1,024
+    threads; lane l belongs to thread l % threads. The card holds six blocks
+    of up to 160 threads an SM (csrc/network_env.cu)."""
+    lanes = 1 if L <= 160 else 2 if L <= 2048 else -(-L // 1024)
     return lanes, (-(-L // lanes) + 31) // 32 * 32
 
 
@@ -427,12 +425,8 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 
 def _kernel() -> ctypes.CDLL:
     """The library, built and loaded at first use."""
-    global _lib, _raw_stream
+    global _lib
     if _lib is None:
-        # the current stream's handle without a Stream object, where this
-        # PyTorch has the call
-        _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) \
-            or (lambda i: torch.cuda.current_stream(i).cuda_stream)
         _lib = bind(_build.load("network_env"))
     return _lib
 
@@ -469,14 +463,12 @@ def _check_cuda(tables: NetworkEnvTables, s, action: torch.Tensor,
             _refuse(tables, name, x, shape, dtype)
 
 
-def occupancy(tables: NetworkEnvTables, c: EnvScalars,
-              lanes: Optional[int] = None) -> Dict[str, int]:
-    """What the card makes of the kernel's launch for ``tables`` and ``c``
-    (``lanes`` a thread, default ``launch_shape``'s): lanes, threads,
-    registers a thread, blocks an SM, shared bytes a block, local (spilled)
-    bytes a thread. Needs the card."""
+def occupancy(tables: NetworkEnvTables, c: EnvScalars) -> Dict[str, int]:
+    """What the card makes of the kernel's launch for ``tables`` and ``c``:
+    lanes a thread, threads a block, registers a thread, blocks an SM,
+    shared bytes a block, local (spilled) bytes a thread. Needs the card."""
     lib = _kernel()
-    lanes, threads = launch_shape(tables.L, lanes)
+    lanes, threads = tables.lanes, tables.threads
     dims = tables.c_args(c)[0]
     out = (ctypes.c_int * 4)()
     err = lib.network_env_occupancy(ctypes.addressof(dims), lanes, threads,
@@ -490,7 +482,7 @@ def occupancy(tables: NetworkEnvTables, c: EnvScalars,
 def network_env_step(tables: NetworkEnvTables, c: EnvScalars, s,
                      action: torch.Tensor,
                      reset_q0: Optional[torch.Tensor] = None,
-                     auto_reset: bool = False, _lanes: Optional[int] = None):
+                     auto_reset: bool = False):
     """One control step of B env rows (see ``network_env_step_ref``):
     launches ``csrc/network_env.cu`` for CUDA tensors, runs the plain twin
     for CPU tensors. Returns (state', obs, reward, done, info); ``state'``
@@ -499,8 +491,7 @@ def network_env_step(tables: NetworkEnvTables, c: EnvScalars, s,
     and the observation, reward and info (the rollout keeps those for the
     whole update, so they never hold the state's storage). Four
     allocations and their views cost the host less than one allocation an
-    output. ``_lanes`` times another lanes a thread than
-    ``launch_shape``'s."""
+    output."""
     if action.device.type == "cpu":
         return network_env_step_ref(tables, c, s, action, reset_q0,
                                     auto_reset)
@@ -513,10 +504,8 @@ def network_env_step(tables: NetworkEnvTables, c: EnvScalars, s,
     if torch.cuda.current_device() != dev.index:
         with torch.cuda.device(dev):
             return network_env_step(tables, c, s, action, reset_q0,
-                                    auto_reset, _lanes)
+                                    auto_reset)
     B, L, M, D, W = action.shape[0], tables.L, tables.M, tables.D, tables.W
-    lanes, threads = (tables.lanes, tables.threads) if _lanes is None \
-        else launch_shape(L, _lanes)
     dims, scal = tables.c_args(c)
     queue, transit, wait, dropped = torch.empty(
         B * (L * (D + 2) + 1), dtype=torch.float32, device=dev
@@ -538,8 +527,9 @@ def network_env_step(tables: NetworkEnvTables, c: EnvScalars, s,
         queue.data_ptr(), transit.data_ptr(), wait.data_ptr(),
         dropped.data_ptr(), prev_phase.data_ptr(), t.data_ptr(),
         done_state.data_ptr(), done.data_ptr(), obs.data_ptr(),
-        reward.data_ptr(), info[0].data_ptr(), B, int(auto_reset), lanes,
-        threads, _raw_stream(dev.index))
+        reward.data_ptr(), info[0].data_ptr(), B, int(auto_reset),
+        tables.lanes, tables.threads,
+        torch._C._cuda_getCurrentRawStream(dev.index))
     if err != 0:
         raise RuntimeError(f"network_env_step kernel launch failed: "
                            f"cudaError {err}")
