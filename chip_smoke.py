@@ -39,38 +39,64 @@ Phases (any failure raises, exits non-zero and prints no result line):
      and the same at num_fc=64, num_lstm=256 (a cell wider than 256);
   6. main path: the flagship MA2C_NC train step on the 5x5 grid at full
      width (B=768 envs, T=120, bf16 with f32 masters, sparse_comm, remat)
-     through ``make_a2c``: a warm-up step and 3 timed steps, with the kernel
-     launch counts read around them (from here on every phase asserts the
-     env kernel's launches beside the cell's: one a control step of an ATSC
-     env, T an update, none on the platoon);
-  7. bench: the throughput tools' twins, ``deeprl_network_tpu_torch/bench.py``
+     through ``make_a2c``: a warm-up step (the capture of the update's CUDA
+     graph) and 3 timed steps (its replays) under the profiler's kernel
+     trace, with the counts set to 0 before and read after: the wrappers'
+     counts (launches issued or captured: the capture's warm-up and the
+     capture, two updates' worth) and the kernels that ran on the card, by
+     name (the warm-up and four replays, five updates' worth), each
+     asserted (from here on every phase asserts the env kernel's launches
+     beside the cell's: one a control step of an ATSC env, T an update, none
+     on the platoon);
+  7. graph: ``make_a2c``'s ``jit`` (the default), each update one replay of a
+     CUDA graph: from one ``init_state(0)`` cloned both ways, 3 updates
+     through the graph against 3 eager ones (``jit=False``), every state
+     leaf, the generator and every metric bit for bit; the wrappers count
+     two updates' worth under the graph and the card runs one update's
+     worth more than eagerly (the warm-up): the flagship, the f32 3x3 grid
+     with kickstart, switch penalty and moving schedules (``ladder_atsc``'s
+     ``pq_kick_sp2``), the replay path (f32, B=64), and each of the six
+     families at a small f32 width on both gradient paths; then, in turns,
+     eager against graph at the flagship and at the harness shape (f32,
+     B=64, no remat): ms an update, the host's ms in ``train_step``, and of
+     one update under the profiler the kernels, kernel ms, runtime calls and
+     busy share (the time some kernel, copy or set ran over the span from
+     the first one's start to the last one's end), the first update (warm-
+     up, capture, instantiation) and peak device memory; and the time to
+     copy the flagship state into the graph's inputs leaf by leaf against
+     one copy a dtype; each configuration timed in a new process, since a
+     trace leaves CUPTI set up in its process and slows every later CUDA
+     call there. Every other phase runs the graph: the wrappers count
+     its warm-up and capture, and the phases that time updates (main path,
+     families, cacc, monaco) also count the kernels on the card;
+  8. bench: the throughput tools' twins, ``deeprl_network_tpu_torch/bench.py``
      (the baseline host loop, and the flagship over a 15 s window after one
-     warm-up update: the JSON line with the prefix ``bench:``, the window's
-     launches asserted, (updates + 1) x (241 + 120) ``tc`` and 120 env
-     steps) and
+     warm-up update: the JSON line with the prefix ``bench:``; the window
+     runs untraced, and the wrappers' counts are asserted, 2 x (241 + 120)
+     ``tc`` and 2 x 120 env steps: the warm-up's capture) and
      ``scripts/profile_step.py``'s variants ``full_ma2c_nc``, ``ia2c`` and
      ``env_only`` at the flagship levers (5 timed calls each), with the
      kernels of one call;
-  8. families: the same step for each of the six agents (a warm-up and 2
-     timed steps each), launch counts asserted; for IA2C_CU also that the
-     weight consensus ran;
-  9. replay: a small f32 MA2C_NC update with ``fused_grad=False`` against
+  9. families: the same step for each of the six agents (a warm-up and 2
+     timed steps each), the wrappers' counts and the kernels on the card
+     asserted; for IA2C_CU also that the weight consensus ran;
+ 10. replay: a small f32 MA2C_NC update with ``fused_grad=False`` against
      the fused update from the same state and noise, launch counts asserted;
- 10. cacc: the CACC platoon from ``configs/config_ma2c_nc_cacc_catchup.ini``
+ 11. cacc: the CACC platoon from ``configs/config_ma2c_nc_cacc_catchup.ini``
      and ``configs/config_ia2c_cu_cacc_slowdown.ini`` at the files' own
      sizes (3 train steps each, launch counts asserted), and two small f32
      updates on the card against the CPU port;
- 11. eval/record: ``eval_episode`` (sampled, greedy) and ``record_episode``
+ 12. eval/record: ``eval_episode`` (sampled, greedy) and ``record_episode``
      (greedy, controller) on the grid and on the platoon with the params
      trained above, on the card against the same calls on the CPU with the
      same noise, and one whole sampled episode each on the card;
- 12. monaco: Monaco-28 MA2C_NC from ``configs/config_ma2c_nc_net.ini``: two
+ 13. monaco: Monaco-28 MA2C_NC from ``configs/config_ma2c_nc_net.ini``: two
      small f32 updates on the card against the CPU port; the file's own step
      (N=28, B=32, T=120, 64/64, f32: a warm-up and 3 timed steps, launch
      counts asserted, every sampled action inside its node's action count);
      the same env at the flagship's settings (B=768, bf16, sparse_comm,
      remat: a warm-up and 2 timed steps);
- 13. cli: in a temporary directory, the port's CLI on a copy of that file
+ 14. cli: in a temporary directory, the port's CLI on a copy of that file
      with ``total_step`` cut to 5 updates: ``train`` with ``in_train_test``
      (log rows, a test row, the config snapshot, checkpoints), ``train
      --restore`` with a doubled budget, ``evaluate`` from the checkpoint and
@@ -78,7 +104,7 @@ Phases (any failure raises, exits non-zero and prints no result line):
      ``Trainer`` run with the time inside and outside ``train_step`` read
      apart, the restored params held bit-equal to the trainer's final ones,
      and the checkpoint's size, save and restore times;
- 14. scripts: the learning and evaluation harnesses
+ 15. scripts: the learning and evaluation harnesses
      (``deeprl_network_tpu_torch/scripts/``): ``train_atsc.greedy_returns``
      on the 5x5 grid, every form of the hand-controller sweep on seeds
      10000-10002 at 720 steps, each form within 1e-5 of the CPU port over
@@ -87,15 +113,15 @@ Phases (any failure raises, exits non-zero and prints no result line):
      ``train_atsc`` (3x3 grid, ``--ckpt``) for 2 updates at B=8 with their
      final evals, launch counts asserted, every row's keys those of the JAX
      repo's ``scripts/``, the checkpoint restored;
- 15. agents: the reference-style host loop with the compat ``MA2C_NC`` class
+ 16. agents: the reference-style host loop with the compat ``MA2C_NC`` class
      on the platoon for two ``n_step = 10`` batches, launch counts asserted
      per call;
- 16. surface: the JAX package's re-exported names from the port's
+ 17. surface: the JAX package's re-exported names from the port's
      packages; the single-env ``policy_step`` at the flagship width
      (grid-25, 64/64, f32) on the card, one launch, bit-equal to
      ``policy_step_batched`` at B=1 and within 1e-5 of the CPU port;
      ``graft_entry.entry()`` once;
- 17. parallel: data-parallel training through ``make_parallel_a2c`` in
+ 18. parallel: data-parallel training through ``make_parallel_a2c`` in
      worker processes (``parallel/smoke_worker.py``): the NCCL path at world
      size 1 on the flagship (B=768); two gloo ranks sharing the card, (a) a
      small f32 MA2C_NC platoon update against one process on the combined
@@ -103,7 +129,7 @@ Phases (any failure raises, exits non-zero and prints no result line):
      at a global B=768, 384 a rank (launch counts, step, finite loss and
      params bit-identical across ranks asserted); env-steps/s of 1 and 2
      ranks, the gradient all-reduce's bytes and time; ``dryrun_multichip(2)``;
- 18. (--profile) device busy share and kernel time by name over one
+ 19. (--profile) device busy share and kernel time by name over one
      flagship step, and the number of kernels in one step of each family.
 
 Output: a kernels JSON line and the card's name and power limit on lines
@@ -115,9 +141,11 @@ from __future__ import annotations
 
 import argparse
 import configparser
+import contextlib
 import csv
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -633,7 +661,8 @@ def check_env_kernel(card):
     return entry
 
 
-def make_flagship(device, env_kw=None, agent="ma2c_nc", **overrides):
+def make_flagship(device, env_kw=None, agent="ma2c_nc", jit=True,
+                  **overrides):
     """The flagship configuration through make_a2c for ``agent``;
     ``overrides`` replace ModelConfig fields, ``env_kw`` adds EnvConfig
     fields."""
@@ -648,7 +677,7 @@ def make_flagship(device, env_kw=None, agent="ma2c_nc", **overrides):
     env = LargeGridEnv(EnvConfig(scenario="large_grid", coop_gamma=0.9,
                                  **(env_kw or {})), device=device)
     return make_a2c(env, ModelConfig(**model),
-                    TrainConfig(total_step=1_000_000), agent=agent,
+                    TrainConfig(total_step=1_000_000), agent=agent, jit=jit,
                     device=device)
 
 
@@ -681,21 +710,94 @@ def zero_counts():
             counts[k] = 0
 
 
-def expect_counts(what, fwd, bwd, variant, env):
-    """Raise unless the wrappers launched ``fwd`` forward and ``bwd``
-    backward cell kernels, all of ``variant``, and ``env`` env-step
-    kernels since ``zero_counts()``; returns the counts."""
+def expect_counts(what, fwd, bwd, variant, env, got=None):
+    """Raise unless ``got`` holds ``fwd`` forward and ``bwd`` backward cell
+    launches, all of ``variant``, and ``env`` env-step launches; returns
+    the counts. ``got`` defaults to the wrappers' counts since
+    ``zero_counts()``: launches issued from Python or captured into a CUDA
+    graph, whose replays they do not see; ``on_card`` gives what ran."""
     from deeprl_network_tpu_torch.ops import lstm_cell as lc
     from deeprl_network_tpu_torch.ops import network_env as ne
     want = {k: 0 for k in {**lc.LAUNCHES, **ne.LAUNCHES}}
     want.update({"lstm_cell_fwd": fwd, f"lstm_cell_fwd_{variant}": fwd,
                  "lstm_cell_bwd": bwd, f"lstm_cell_bwd_{variant}": bwd,
                  "network_env_step": env})
-    got = {**lc.LAUNCHES, **ne.LAUNCHES}
+    if got is None:
+        got = {**lc.LAUNCHES, **ne.LAUNCHES}
     if got != want:
         raise AssertionError(f"{what}: kernel launches {got}, expected "
                              f"{want}")
+    return dict(got)
+
+
+# the kernel that each wrapper call launches once, by the count the wrapper
+# adds to (the backward wrappers launch more kernels after it)
+KERNEL_OF = {"lstm_cell_fwd_tc": "lstm_tc_fwd_kernel",
+             "lstm_cell_bwd_tc": "lstm_tc_bwd_act_kernel",
+             "lstm_cell_fwd_general": "lstm_fwd_kernel",
+             "lstm_cell_bwd_general": "lstm_bwd_act_kernel",
+             "network_env_step": "network_env_kernel"}
+
+
+def kernel_counts(by_name):
+    """The wrappers' count names from kernel counts by (demangled) name."""
+    got = {}
+    for key, kernel in KERNEL_OF.items():
+        pat = re.compile(rf"(?<!\w){kernel}(?!\w)")
+        got[key] = sum(n for name, n in by_name.items() if pat.search(name))
+    for d in ("fwd", "bwd"):
+        got[f"lstm_cell_{d}"] = (got[f"lstm_cell_{d}_tc"]
+                                 + got[f"lstm_cell_{d}_general"])
     return got
+
+
+# idle seconds kept at both ends of a trace: the profiler drops the device
+# records that its clock places outside the trace's window ("Out-of-range"
+# in its log); without them a trace that ended right after a graph replay
+# missed 27 forward and 28 backward cell kernels, as the replay's last
+# backward steps would be
+TRACE_EDGE_S = 0.2
+
+
+@contextlib.contextmanager
+def traced():
+    """torch.profiler over the block, CUDA activity only (the kernels,
+    copies and sets on the card and the CUDA runtime calls), the card idle
+    at both ends; yields the profiler, to be read after the block."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(TRACE_EDGE_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(TRACE_EDGE_S)
+
+
+def trace_events(prof):
+    """(card, name, start ns, duration ns) of every event of a finished
+    trace: on the card, the kernels, copies and sets; else the CUDA runtime
+    calls. Read from the profiler's raw events: its event tree
+    (``key_averages``) takes seconds to build for a trace of an update."""
+    from torch.autograd import DeviceType
+    return [(e.device_type() == DeviceType.CUDA, e.name(), e.start_ns(),
+             e.duration_ns()) for e in prof.profiler.kineto_results.events()]
+
+
+@contextlib.contextmanager
+def on_card():
+    """The kernels that run on the card inside the block, counted by name
+    under ``traced`` into the yielded dict, filled at the block's end under
+    the wrappers' count names: unlike the wrappers' counts, these include
+    what replays of a CUDA graph run."""
+    ran = {}
+    with traced() as prof:
+        yield ran
+    by_name = {}
+    for card, name, _, _ in trace_events(prof):
+        if card:
+            by_name[name] = by_name.get(name, 0) + 1
+    ran.update(kernel_counts(by_name))
 
 
 def check_wide_reference():
@@ -703,7 +805,8 @@ def check_wide_reference():
     num_lstm=256 (F + H = 320, past the general kernels' old cap) on the
     card against the CPU port; every cell launch is general (remat: 2T+1
     forward and T backward an update, two updates), one env-step launch a
-    control step."""
+    control step. The updates are given their noise and run one graph: its
+    warm-up and capture are the two updates the wrappers count."""
     zero_counts()
     check_reference("reference wide",
                     lambda device: small_grid(device, num_fc=64,
@@ -768,37 +871,53 @@ def small_grid(device, **overrides):
 
 def timed_steps(what, fns, ts, n_timed, fwd_per_step, bwd_per_step, variant,
                 env_per_step):
-    """A warm-up ``train_step`` and ``n_timed`` timed ones from ``ts``, with
-    the launch counts set to 0 before and asserted after (``env_per_step``
-    env-step launches an update: T on the ATSC envs); checks that the
-    result is finite, the masters f32 and the params changed. Returns
-    (state, last metrics, launch counts, per-step seconds)."""
+    """A warm-up ``train_step`` and ``n_timed`` timed ones from ``ts`` (the
+    first captures the update's CUDA graph, the others replay it) under
+    ``on_card``, with the counts set to 0 before and asserted after
+    (``env_per_step`` env-step launches an update: T on the ATSC envs): the
+    wrappers count two updates' worth (the capture's warm-up and the
+    capture), and the card runs one update's worth more than the calls (the
+    warm-up). Checks that the result is finite, the masters f32 and the
+    params changed. Returns (state, last metrics, {"issued": the wrappers'
+    counts, "ran": the card's, "runs": the updates the card ran}, per-step
+    seconds, under the kernel trace)."""
     import torch
     from deeprl_network_tpu_torch.models.policies import tree_leaves
     p0 = [p.clone() for p in tree_leaves(ts.params)]
     zero_counts()
-    t0 = time.perf_counter()
-    ts, m = fns.train_step(ts)          # warm-up
-    torch.cuda.synchronize()
-    log(f"{what}: warm-up train_step {time.perf_counter() - t0:.2f} s, "
-        f"loss {float(m['loss']):.6f}")
-    step_times = []
-    for _ in range(n_timed):
+    with on_card() as ran:
         t0 = time.perf_counter()
-        ts, m = fns.train_step(ts)
+        ts, m = fns.train_step(ts)          # warm-up
         torch.cuda.synchronize()
-        step_times.append(time.perf_counter() - t0)
+        log(f"{what}: warm-up train_step {time.perf_counter() - t0:.2f} s, "
+            f"loss {float(m['loss']):.6f}")
+        step_times = []
+        for _ in range(n_timed):
+            t0 = time.perf_counter()
+            ts, m = fns.train_step(ts)
+            torch.cuda.synchronize()
+            step_times.append(time.perf_counter() - t0)
     n_steps = n_timed + 1
-    launches = expect_counts(what, fwd_per_step * n_steps,
-                             bwd_per_step * n_steps, variant,
-                             env_per_step * n_steps)
+    issued, runs = (2, n_steps + 1) if fns.graphed else (n_steps, n_steps)
+    counts = {"issued": expect_counts(
+        what, fwd_per_step * issued, bwd_per_step * issued, variant,
+        env_per_step * issued),
+        "ran": expect_counts(
+            f"{what} on the card", fwd_per_step * runs, bwd_per_step * runs,
+            variant, env_per_step * runs, got=ran),
+        "runs": runs}
     check_finite_and_moved(what, m, ts.params, p0)
-    return ts, m, launches, step_times
+    return ts, m, counts, step_times
+
+
+def per_update(counts):
+    """The kernels on the card an update, from ``timed_steps``' counts."""
+    return {k: v // counts["runs"] for k, v in counts["ran"].items() if v}
 
 
 def run_main_path(card: str, n_timed: int = 3):
-    """Flagship train steps through make_a2c; returns (launch counts,
-    env-steps/s, fns, state)."""
+    """Flagship train steps through make_a2c; returns (``timed_steps``'
+    counts, env-steps/s under the kernel trace, fns, state)."""
     import torch
     fns = make_flagship("cuda")
     T, B = 120, 768
@@ -807,18 +926,321 @@ def run_main_path(card: str, n_timed: int = 3):
     # every launch of the flagship step takes the tensor-core variant:
     # rollout, bootstrap and the remat recompute forward, T backward; the
     # env step is one launch a control step
-    ts, m, launches, step_times = timed_steps(
+    ts, m, counts, step_times = timed_steps(
         "main path", fns, ts, n_timed, 2 * T + 1, T, "tc", T)
     dt = sum(step_times)
     sps = n_timed * T * B / dt
     log("main path: " + json.dumps({
         k: (float(v) if torch.is_tensor(v) else v) for k, v in m.items()}))
     log(f"main path: {n_timed} timed train_steps in {dt:.3f} s = "
-        f"{sps:.1f} env-steps/s (B={B}, T={T}, bf16, sparse_comm, remat) "
-        f"on {card}; per step {json.dumps([round(t, 4) for t in step_times])} s; "
-        f"peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
-    return launches, sps, fns, ts
+        f"{sps:.1f} env-steps/s (B={B}, T={T}, bf16, sparse_comm, remat; "
+        f"under the kernel trace) on {card}; per step "
+        f"{json.dumps([round(t, 4) for t in step_times])} s; peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; "
+        f"launches issued or captured {json.dumps(counts['issued'])}, run "
+        f"on the card {json.dumps(counts['ran'])}")
+    return counts, sps, fns, ts
+
+
+def clone_state(ts):
+    """A TrainState with copies of ``ts``'s tensors and generator."""
+    import torch
+    from deeprl_network_tpu_torch.utils.rollout import (
+        state_from_leaves, state_leaves,
+    )
+    gen = torch.Generator(device=ts.generator.device)
+    gen.set_state(ts.generator.get_state())
+    return state_from_leaves(ts, [t.clone() for t in state_leaves(ts)],
+                             ts.step, ts.opt_state.count, gen)
+
+
+def graph_against_eager(what, make, n=3):
+    """``make(jit)`` builds the functions; ``n`` updates through the graph
+    and eagerly from one ``init_state(0)`` cloned both ways, under
+    ``on_card``: every TrainState leaf, the generator and every metric bit
+    for bit. Eagerly the wrappers count ``n`` updates' worth of launches and
+    the card runs them; under the graph the wrappers count two (the
+    capture's warm-up and the capture) and the card runs ``n + 1`` (the
+    warm-up and ``n`` replays). Returns ({"issued": the graph's wrapper
+    counts, "ran": its counts on the card}, the graph's capture times)."""
+    import torch
+    from deeprl_network_tpu_torch.ops import lstm_cell as lc
+    from deeprl_network_tpu_torch.ops import network_env as ne
+    from deeprl_network_tpu_torch.utils.rollout import state_leaves
+    runs, counts = {}, {}
+    ts0 = None
+    for jit in (True, False):
+        fns = make(jit)
+        if ts0 is None:
+            ts = fns.init_state(0)
+            ts0 = clone_state(ts)
+        else:
+            ts = clone_state(ts0)
+        zero_counts()
+        runs[jit] = []
+        with on_card() as ran:
+            for _ in range(n):
+                ts, m = fns.train_step(ts)
+                runs[jit].append((ts, m))
+        counts[jit] = {"issued": {**lc.LAUNCHES, **ne.LAUNCHES},
+                       "ran": dict(ran)}
+        if jit:
+            times = next(iter(fns.graphed.graphs.values())).times
+        del fns
+    eager, graph = counts[False], counts[True]
+    per = {k: v // n for k, v in eager["issued"].items()}
+    want = {"issued": {k: 2 * v for k, v in per.items()},
+            "ran": {k: (n + 1) * v for k, v in per.items()}}
+    if (eager["ran"] != eager["issued"]
+            or any(v % n for v in eager["issued"].values())
+            or graph != want):
+        raise AssertionError(f"graph {what}: launches {graph} under the "
+                             f"graph, {eager} eager over {n} updates")
+    for i, ((ts_g, m_g), (ts_e, m_e)) in enumerate(zip(runs[True],
+                                                       runs[False])):
+        for j, (a, b) in enumerate(zip(state_leaves(ts_g),
+                                       state_leaves(ts_e))):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError(
+                    f"graph {what}: update {i + 1}, state leaf {j} differs "
+                    f"from eager by {float((a.float() - b.float()).abs().max())}")
+        if not torch.equal(ts_g.generator.get_state(),
+                           ts_e.generator.get_state()):
+            raise AssertionError(f"graph {what}: update {i + 1}: the "
+                                 "generators differ")
+        if m_g.keys() != m_e.keys() or any(
+                float(m_g[k]) != float(m_e[k]) for k in m_g):
+            raise AssertionError(f"graph {what}: update {i + 1}: metrics "
+                                 f"{m_g} under the graph, {m_e} eager")
+    log(f"graph {what}: {n} updates through the graph equal the eager "
+        f"updates bit for bit (every state leaf, the generator, metrics "
+        f"{sorted(runs[True][-1][1])}); launches an update "
+        f"{json.dumps({k: v for k, v in per.items() if v})}: eager issued "
+        f"and ran {n} updates' worth, the graph issued 2 and ran {n + 1}; "
+        f"capture {json.dumps(times)}")
+    return graph, times
+
+
+def api_and_kernels(fn, arg):
+    """One ``fn(arg)`` under ``traced``: (CUDA runtime calls by name,
+    kernels by name, their seconds, the span in seconds from the first
+    device activity's start to the last one's end, and the busy share: the
+    part of that span in which some kernel, copy or set ran)."""
+    with traced() as prof:
+        fn(arg)
+    calls, kernels, spans = {}, {}, []
+    for card, name, start, dur in trace_events(prof):
+        if card:
+            kernels[name] = kernels.get(name, 0) + 1
+            spans.append((start, start + dur))
+        elif name.startswith("cuda") or (name.startswith("cu")
+                                          and name[2:3].isupper()):
+            calls[name] = calls.get(name, 0) + 1
+    spans.sort()
+    busy, end = 0, spans[0][0]
+    for a, b in spans:                  # the union of the intervals (ns)
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    span = end - spans[0][0]
+    total = sum(b - a for a, b in spans)
+    return calls, kernels, total / 1e9, span / 1e9, busy / span
+
+
+def graph_timings(what, make, n=5):
+    """Eager (``jit=False``) against graph in turns: the first update (the
+    graph's warm-up, capture and instantiation), then ``n`` updates each,
+    alternating, each after a sync: wall ms an update and the host's ms in
+    ``train_step`` (until it returns); of one more update under the
+    profiler, its kernels, kernel ms, runtime calls, device span and busy
+    share; peak device memory of each way from a fresh start (init, first
+    update and one more). Returns the result dict, and the two ways'
+    functions and states."""
+    import gc
+    import statistics
+    import torch
+    out = {"what": what}
+    peaks = {}
+    for jit in (False, True):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fns = make(jit)
+        ts = fns.init_state(0)
+        for _ in range(2):
+            ts, m = fns.train_step(ts)
+        torch.cuda.synchronize()
+        peaks[jit] = (torch.cuda.max_memory_allocated() - base) / 2**30
+        del fns, ts, m
+    out["peak_gib"] = {"eager": peaks[False], "graph": peaks[True]}
+    fns = {jit: make(jit) for jit in (False, True)}
+    ts = {True: fns[True].init_state(0)}
+    ts[False] = clone_state(ts[True])
+    first = {}
+    for jit in (False, True):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ts[jit], _ = fns[jit].train_step(ts[jit])
+        torch.cuda.synchronize()
+        first[jit] = time.perf_counter() - t0
+    out["first_update_s"] = {"eager": first[False], "graph": first[True]}
+    out["capture_s"] = next(iter(fns[True].graphed.graphs.values())).times
+    rows = {False: [], True: []}
+    for _ in range(n):
+        for jit in (False, True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ts[jit], m = fns[jit].train_step(ts[jit])
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            rows[jit].append(((t2 - t0) * 1e3, (t1 - t0) * 1e3))
+    for jit, name in ((False, "eager"), (True, "graph")):
+        wall, host = zip(*rows[jit])
+        calls, kernels, k_s, span_s, busy = api_and_kernels(
+            fns[jit].train_step, ts[jit])
+        ms = statistics.median(wall)
+        out[name] = {
+            "ms": ms, "ms_all": [round(x, 3) for x in wall],
+            "host_ms": statistics.median(host),
+            "kernels": sum(kernels.values()), "kernel_ms": k_s * 1e3,
+            "span_ms": span_s * 1e3, "busy_share": busy,
+            "runtime_calls": calls}
+        out[f"_{name}_kernels"] = kernels
+    ke, kg = out.pop("_eager_kernels"), out.pop("_graph_kernels")
+    diff = {k: kg.get(k, 0) - ke.get(k, 0) for k in set(ke) | set(kg)
+            if kg.get(k, 0) != ke.get(k, 0)}
+    out["kernels_graph_minus_eager"] = dict(sorted(
+        diff.items(), key=lambda kv: -abs(kv[1]))[:8])
+    out["speedup"] = out["eager"]["ms"] / out["graph"]["ms"]
+    log(f"graph timings {what}: " + json.dumps(out))
+    return out, fns, ts
+
+
+# the configurations the graph phase times, as ``make_flagship`` overrides:
+# the flagship, and the harness shape (f32, B=64, no remat: the general
+# kernels)
+TIMED = {"flagship": {},
+         "harness f32 B=64": dict(num_envs=64, compute_dtype="float32",
+                                  sparse_comm=False, remat=False)}
+
+
+def graph_timings_child(what: str) -> None:
+    """``graph_timings`` of ``TIMED[what]`` in this process (and, at the
+    flagship, ``copy_in_times``); prints the result as the last line."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out, fns, ts = graph_timings(
+        what, lambda jit: make_flagship("cuda", jit=jit, **TIMED[what]))
+    if what == "flagship":
+        out["copy_in"] = copy_in_times(fns[True], ts[True], card_line())
+    print(json.dumps(out), flush=True)
+
+
+def fresh_timings(what: str) -> dict:
+    """``graph_timings_child(what)`` in a new process: a trace leaves the
+    profiler's CUPTI set up in its process (torch turns CUPTI's teardown off
+    where CUDA graphs are used), which slows every later CUDA call there,
+    and the phases before this one have traced."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    run = subprocess.run(
+        [sys.executable, "-c",
+         f"import chip_smoke as c; c.graph_timings_child({what!r})"],
+        cwd=root, capture_output=True, text=True, timeout=900)
+    lines = run.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        log(line)
+    if run.returncode != 0 or not lines:
+        raise RuntimeError(f"graph timings {what}: exit {run.returncode}\n"
+                           f"{run.stdout[-4000:]}\n{run.stderr[-4000:]}")
+    return json.loads(lines[-1])
+
+
+def copy_in_times(fns, ts, card):
+    """The graph's copy of a state into its static inputs
+    (``Arena.copy_in``) both ways: ``ts`` as a call returns it (views of one
+    clone an arena: one copy a dtype) and a copy of it leaf by leaf (a
+    restored checkpoint's path); the host's ms a call and the card's."""
+    from deeprl_network_tpu_torch.utils.rollout import state_leaves
+    got = fns.graphed.graphs[False]
+    views = state_leaves(ts)
+    leaves = [t.clone() for t in views]
+    ways = {"leaf_by_leaf": lambda: got.arena_in.copy_in(got.state_in,
+                                                         leaves),
+            "one_a_dtype": lambda: got.arena_in.copy_in(got.state_in,
+                                                        views)}
+    out = {"leaves": len(leaves), "bytes": sum(
+        t.numel() * t.element_size() for t in leaves)}
+    for name, fn in ways.items():
+        out[name] = {"host_ms": host_call_ms(fn), "card_ms": graph_ms(fn)}
+    log(f"graph copy-in flagship: {json.dumps(out)} on {card}")
+    return out
+
+
+def run_graph(card: str):
+    """The graph phase: the graph's update against the eager update (the
+    flagship; each family at a small f32 width on both gradient paths; the
+    f32 3x3 grid with kickstart, switch penalty and moving schedules, a
+    ``ladder_atsc`` variant; the replay path), then, each in a new process
+    (``fresh_timings``), the timings in turns at the flagship and at the
+    harness shape (f32, B=64, no ``remat``: the general kernels) and the
+    flagship state's copy-in. Returns the flagship's graph counts, issued
+    and run."""
+    import torch
+    from deeprl_network_tpu_torch.config import (
+        EnvConfig, ModelConfig, TrainConfig,
+    )
+    from deeprl_network_tpu_torch.envs.grid import build_grid_topology
+    from deeprl_network_tpu_torch.envs.network import TrafficNetworkEnv
+    from deeprl_network_tpu_torch.scripts.ladder_atsc import LADDER
+    from deeprl_network_tpu_torch.utils.rollout import make_a2c
+    t_phase = time.perf_counter()
+    T = 120
+    flag = lambda jit, **kw: make_flagship("cuda", jit=jit, **kw)
+    launches, _ = graph_against_eager("flagship", flag)
+    for agent in AGENTS:
+        for fused in (True, False):
+            graph_against_eager(
+                f"{agent} {'fused' if fused else 'replay'} small f32",
+                lambda jit, agent=agent, fused=fused: small_grid(
+                    "cuda", agent=agent, jit=jit, fused_grad=fused))
+    env_kw, model_kw = LADDER["pq_kick_sp2"]
+
+    def ladder(jit):
+        # 3 updates of 7,680 steps over a 30,000-step run: the learning
+        # rate, the entropy coefficient and the kickstart weight all move
+        cfg = EnvConfig(scenario="large_grid", coop_gamma=0.9, **env_kw)
+        env = TrafficNetworkEnv(cfg, build_grid_topology(cfg, 3),
+                                device="cuda")
+        return make_a2c(env, ModelConfig(
+            batch_size=T, num_envs=64, lr_decay="linear",
+            entropy_decay="linear", **model_kw),
+            TrainConfig(total_step=30_000), agent="ma2c_nc", jit=jit,
+            device="cuda")
+    graph_against_eager("ladder pq_kick_sp2 3x3 f32", ladder)
+    graph_against_eager("replay f32 B=64", lambda jit: flag(
+        jit, fused_grad=False, **TIMED["harness f32 B=64"]))
+    timings = [fresh_timings(what) for what in TIMED]
+    for t in timings:
+        log(f"graph {t['what']}: {t['eager']['ms']:.2f} ms an update eager, "
+            f"{t['graph']['ms']:.2f} graph ({t['speedup']:.2f}x); host "
+            f"{t['eager']['host_ms']:.2f} / {t['graph']['host_ms']:.2f} ms "
+            f"in train_step; kernels "
+            f"{t['eager']['kernels']} / {t['graph']['kernels']}, kernel ms "
+            f"{t['eager']['kernel_ms']:.2f} / {t['graph']['kernel_ms']:.2f} "
+            f"over a span of {t['eager']['span_ms']:.2f} / "
+            f"{t['graph']['span_ms']:.2f} ms under the trace, busy share "
+            f"{t['eager']['busy_share']:.4f} / {t['graph']['busy_share']:.4f};"
+            f" first update {t['first_update_s']['eager']:.3f} / "
+            f"{t['first_update_s']['graph']:.3f} s; peak "
+            f"{t['peak_gib']['eager']:.3f} / {t['peak_gib']['graph']:.3f} GiB"
+            f" on {card}")
+    del timings
+    torch.cuda.empty_cache()
+    log(f"graph: phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def run_bench(card: str):
@@ -835,10 +1257,12 @@ def run_bench(card: str):
         f"env-steps/s")
     zero_counts()
     r = bench.measure(seconds_budget=15, **bench.FLAGSHIP)
-    # the window's updates and the excluded warm-up, each 2T+1 forward and
-    # T backward tensor-core launches and T env steps
-    n = r.updates + 1
-    launches = expect_counts("bench", n * 241, n * 120, "tc", n * 120)
+    # the excluded warm-up captures the update's graph, and the window only
+    # replays it: the wrappers count the capture's warm-up and the capture,
+    # each 2T+1 forward and T backward tensor-core launches and T env
+    # steps (the window runs untraced, as bench.py does: the main path and
+    # the families count what replays run)
+    launches = expect_counts("bench", 2 * 241, 2 * 120, "tc", 2 * 120)
     if not (r.env_steps_per_s > baseline and math.isfinite(r.loss)):
         raise AssertionError(f"bench: rate {r.env_steps_per_s} against the "
                              f"baseline's {baseline}, loss {r.loss}")
@@ -873,15 +1297,13 @@ def run_families(card: str, profile: bool, n_timed: int = 2):
         fns = make_flagship("cuda", agent=agent)
         ts = fns.init_state(0)
         spread0 = agent_spread(ts.params)
-        ts, m, launches, step_times = timed_steps(
+        ts, m, counts, step_times = timed_steps(
             what, fns, ts, n_timed, 2 * T + 1, T, "tc", T)
         line = {"agent": agent, "loss": float(m["loss"]),
                 "grad_norm": float(m["grad_norm"]),
                 "env_steps_per_s": n_timed * T * B / sum(step_times),
                 "step_s": [round(t, 4) for t in step_times],
-                "launches_per_step": {
-                    k: v // (n_timed + 1) for k, v in launches.items() if v},
-                "card": card}
+                "launches_per_step": per_update(counts), "card": card}
         spread = agent_spread(ts.params)
         if agent == "ia2c_cu":
             # averaging over closed neighbourhoods of 3 to 5 agents cuts
@@ -908,7 +1330,8 @@ def run_families(card: str, profile: bool, n_timed: int = 2):
 def check_replay():
     """A small f32 MA2C_NC update on the card through the replay path
     against the fused path, from the same state and noise (both with
-    remat); asserts each path's launch counts."""
+    remat); asserts each path's launch counts: the wrappers count the
+    graph's warm-up and capture, two updates' worth."""
     import numpy as np
     import torch
     from deeprl_network_tpu_torch.models.policies import tree_leaves
@@ -924,8 +1347,8 @@ def check_replay():
         zero_counts()
         ts, m = fns.train_step(ts, gumbel=g)
         torch.cuda.synchronize()
-        expect_counts(f"replay (fused_grad={fused})", n_fwd, T, "general",
-                      T)
+        expect_counts(f"replay (fused_grad={fused})", 2 * n_fwd, 2 * T,
+                      "general", 2 * T)
         out[fused] = (ts, m)
     (ts_f, m_f), (ts_r, m_r) = out[True], out[False]
     for k in ("loss", "grad_norm", "value_loss", "entropy", "step_reward"):
@@ -946,7 +1369,7 @@ def check_replay():
 def run_cacc(card: str, n_timed: int = 2):
     """The two CACC configurations at the files' own sizes, then small f32
     updates against the CPU port. Returns {config: (fns, state)} and the
-    launch counts of the first configuration's run."""
+    ``timed_steps`` counts of the first configuration's run."""
     import torch
     trained, first_launches = {}, None
     for path in CACC_CONFIGS:
@@ -959,17 +1382,15 @@ def run_cacc(card: str, n_timed: int = 2):
             raise AssertionError(f"{what}: not the size the file states")
         # no remat in these files: T rollout + 1 bootstrap forwards; the
         # platoon's step is PyTorch ops, no env kernel
-        ts, m, launches, step_times = timed_steps(
+        ts, m, counts, step_times = timed_steps(
             what, fns, ts, n_timed, T + 1, T, "general", 0)
-        first_launches = first_launches or launches
+        first_launches = first_launches or counts
         log("cacc " + json.dumps({
             "config": path, "loss": float(m["loss"]),
             "grad_norm": float(m["grad_norm"]),
             "env_steps_per_s": n_timed * T * B / sum(step_times),
             "step_s": [round(t, 4) for t in step_times],
-            "launches_per_step": {
-                k: v // (n_timed + 1) for k, v in launches.items() if v},
-            "card": card}))
+            "launches_per_step": per_update(counts), "card": card}))
         trained[path] = (fns, ts)
         # initial noise off: the CPU's and the card's generators differ
         check_reference(
@@ -1055,7 +1476,7 @@ def check_eval_record(what, gpu_fns, cpu_fns, params, horizon, episode,
 def run_monaco(card: str):
     """Monaco-28 MA2C_NC: a small step against the CPU port, the ``.ini``
     file's own step and the same env at the flagship's settings. Returns the
-    launch counts of the two full-width runs."""
+    ``timed_steps`` counts of the two full-width runs."""
     import torch
     T = 120
     check_reference(
@@ -1076,28 +1497,28 @@ def run_monaco(card: str):
                 topo.n_lane, env.max_delay, env.episode_steps,
                 fns.steps_per_update) != (28, 64, 64, 6, 148, 18, 720, T * B):
             raise AssertionError(f"{what}: not the size the file states")
-        # every sampled action must lie inside its node's action count
+        # every sampled action must lie inside its node's action count; the
+        # flag is written in place, so that every replay of the update's
+        # graph writes it too
         n_a = torch.as_tensor(env.spec.n_a_ls, device="cuda")
-        bad = [torch.zeros((), dtype=torch.bool, device="cuda")]
+        bad = torch.zeros((), dtype=torch.bool, device="cuda")
         step = env.step_autoreset
 
         def checked_step(state, action, *rest):
-            bad[0] = bad[0] | (action >= n_a).any() | (action < 0).any()
+            bad.logical_or_((action >= n_a).any() | (action < 0).any())
             return step(state, action, *rest)
         env.step_autoreset = checked_step
-        ts, m, launches, step_times = timed_steps(
+        ts, m, counts, step_times = timed_steps(
             what, fns, fns.init_state(0), n_timed, fwd, T, variant, T)
-        if bool(bad[0]):
+        if bool(bad):
             raise AssertionError(f"{what}: a padded phase was sampled")
-        out[what] = launches
+        out[what] = counts
         log(what + " " + json.dumps({
             "config": MONACO_INI, "overrides": overrides,
             "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
             "env_steps_per_s": n_timed * T * B / sum(step_times),
             "step_s": [round(t, 4) for t in step_times],
-            "launches_per_step": {
-                k: v // (n_timed + 1) for k, v in launches.items() if v},
-            "card": card}))
+            "launches_per_step": per_update(counts), "card": card}))
         del env, fns, ts
         torch.cuda.empty_cache()
     return out
@@ -1157,12 +1578,14 @@ def run_cli(card: str):
         base = os.path.join(d, "run")
         data, eva = os.path.join(base, "data"), os.path.join(base, "eva_data")
         ini = write_ini(os.path.join(d, "first"), n_upd * spu)
+        # the updates run one graph: the wrappers count its warm-up and
+        # capture, two updates' worth; the test episodes run eagerly
         wall = timed_cli(
             "cli train",
             ["--base-dir", base, "train", "--config-dir", ini,
              "--test-mode", "in_train_test"],
-            n_upd * (T + 1) + n_test_seeds * horizon, n_upd * T,
-            n_upd * T + n_test_seeds * horizon)
+            2 * (T + 1) + n_test_seeds * horizon, 2 * T,
+            2 * T + n_test_seeds * horizon)
         require_files("cli train", data, [
             "train_log.csv", "train_log.jsonl", "test_log.csv",
             os.path.basename(MONACO_INI)])
@@ -1190,7 +1613,7 @@ def run_cli(card: str):
         wall = timed_cli(
             "cli train --restore",
             ["--base-dir", base, "train", "--config-dir", bigger,
-             "--restore"], n_upd * (T + 1), n_upd * T, n_upd * T)
+             "--restore"], 2 * (T + 1), 2 * T, 2 * T)
         after = [float(r["step"])
                  for r in csv_rows(os.path.join(data, "train_log.csv"))]
         new = after[len(steps):]
@@ -1367,7 +1790,8 @@ def run_scripts(card: str):
              "--num-envs", str(B), "--out", out])
         torch.cuda.synchronize()
         cacc_s = time.perf_counter() - t0
-        # 2 updates, then 3 sampled eval episodes of 600 steps
+        # 2 updates (one graph: the wrappers count its warm-up and capture,
+        # two updates' worth), then 3 sampled eval episodes of 600 steps
         launches = {"scripts train_cacc_families": expect_counts(
             "scripts train_cacc_families", 2 * (T + 1) + 3 * 600, 2 * T,
             "general", 0)}
@@ -1386,8 +1810,9 @@ def run_scripts(card: str):
                          "--num-envs", str(B), "--out", out, "--ckpt", ckpt])
         torch.cuda.synchronize()
         atsc_s = time.perf_counter() - t0
-        # 2 updates, then 3 sampled and 3 argmax eval episodes of 720 steps
-        # and the hand-controller sweep (720 env steps)
+        # 2 updates (one graph's warm-up and capture), then 3 sampled and 3
+        # argmax eval episodes of 720 steps and the hand-controller sweep
+        # (720 env steps)
         launches["scripts train_atsc"] = expect_counts(
             "scripts train_atsc", 2 * (T + 1) + 6 * 720, 2 * T, "general",
             2 * T + 7 * 720)
@@ -1572,27 +1997,28 @@ def parallel_rate(results, T: int) -> float:
 
 def check_rank_results(what, results, n_updates, fwd, bwd, variant, T, env):
     """Each rank's launch counts (``fwd`` + ``bwd`` an update, all of
-    ``variant``, and ``env`` env steps), finite loss, global step, and
-    params equal across ranks."""
+    ``variant``, and ``env`` env steps) and gradient all-reduces, as the
+    wrappers count them: every update's eagerly, the graph's warm-up and
+    capture (two updates' worth) under ``jit``; finite loss, global step,
+    and params equal across ranks."""
     import math
     B = results[0]["envs"] * len(results)
-    want = {"lstm_cell_fwd": fwd * n_updates,
-            f"lstm_cell_fwd_{variant}": fwd * n_updates,
-            "lstm_cell_bwd": bwd * n_updates,
-            f"lstm_cell_bwd_{variant}": bwd * n_updates}
-    if env:
-        want["network_env_step"] = env * n_updates
     for r in results:
+        n = 2 if r["jit"] else n_updates
+        want = {"lstm_cell_fwd": fwd * n, f"lstm_cell_fwd_{variant}": fwd * n,
+                "lstm_cell_bwd": bwd * n, f"lstm_cell_bwd_{variant}": bwd * n}
+        if env:
+            want["network_env_step"] = env * n
         if r["launches"] != want:
             raise AssertionError(f"{what} rank {r['rank']}: kernel launches "
                                  f"{r['launches']}, expected {want}")
         if not all(math.isfinite(m["loss"]) for m in r["metrics"]):
             raise AssertionError(f"{what} rank {r['rank']}: non-finite loss")
-        if r["step"] != n_updates * T * B or r["allreduce"]["calls"] != \
-                n_updates:
+        if r["step"] != n_updates * T * B or r["allreduce"]["calls"] != n:
             raise AssertionError(f"{what} rank {r['rank']}: step "
                                  f"{r['step']}, {r['allreduce']['calls']} "
-                                 f"all-reduces in {n_updates} updates")
+                                 f"all-reduces issued or captured in "
+                                 f"{n_updates} updates (jit {r['jit']})")
     if len({r["params_sha256"] for r in results}) != 1:
         raise AssertionError(f"{what}: params differ across ranks")
     return results[0]["launches"]
@@ -1640,8 +2066,8 @@ def run_other(card: str):
                 "env_steps_per_s": rates[what],
                 "update_s": {r["rank"]: r["update_s"] for r in res},
                 "loss": res[0]["metrics"][-1]["loss"],
-                "launches_per_update_a_rank": {
-                    k: v // 3 for k, v in res[0]["launches"].items()},
+                "jit": res[0]["jit"],
+                "launches_issued_or_captured_a_rank": res[0]["launches"],
                 "grad_allreduce": res[0]["allreduce"],
                 "wall_s_with_process_start": wall, "card": card}))
 
@@ -1658,9 +2084,11 @@ def run_other(card: str):
         launches[what] = check_rank_results(what, res, 2, 9, 8, "general", 8,
                                             0)
         env = CACCEnv(EnvConfig(**env_kw), device="cuda")
+        # eager: the wrapped step must see every update's actions, and
+        # under a graph it runs only while the update is captured
         fns = make_a2c(env, ModelConfig(**model),
                        TrainConfig(total_step=10_000), agent="ma2c_nc",
-                       device="cuda")
+                       jit=False, device="cuda")
         actions, step = [], env.step
 
         def recording_step(state, action):
@@ -1786,6 +2214,7 @@ def main(argv=None) -> int:
     step_s = 120 * 768 / sps
     if args.profile:
         profile_step(fns, ts, step_s)
+    graph_launches = run_graph(card)
     bench_launches = run_bench(card)
     grid_params = ts.params
     del ts
@@ -1820,53 +2249,69 @@ def main(argv=None) -> int:
                "_general": "deeprl_network_tpu_torch/ops/csrc/lstm_cell.cu"}
     replaces = {"lstm_cell_fwd": "deeprl_network_tpu/ops/pallas_lstm.py:108",
                 "lstm_cell_bwd": "deeprl_network_tpu/ops/pallas_lstm.py:233"}
+    # ``launches`` and ``launches_by_path``: the wrappers' counts, launches
+    # issued or captured into a CUDA graph; ``device_launches`` and
+    # ``device_launches_by_path``: the kernels that ran on the card, counted
+    # by name under the profiler (``on_card``), where a path was traced
     kernels = []
     for name, e in entries.items():
         base = name.replace("_general", "")
         # the flagship run's counts for the tensor-core kernels, the first
         # platoon run's for the general ones
         general = name.endswith("_general")
-        n = (cacc_launches if general else launches)[name]
-        n_monaco = monaco_launches[
-            "monaco ini" if general else "monaco b768"][base]
+        main_run = cacc_launches if general else launches
+        monaco_run = monaco_launches[
+            "monaco ini" if general else "monaco b768"]
         n_other = {k: v[base] for k, v in parallel_launches.items()
-                      if v.get(f"{base}_{'general' if general else 'tc'}")}
+                   if v.get(f"{base}_{'general' if general else 'tc'}")}
+        ran = {"cacc ini" if general else "flagship": main_run["ran"][name],
+               "monaco ini" if general else "monaco b768":
+                   monaco_run["ran"][base]}
         if not general:
             n_other["bench"] = bench_launches[base]
+            n_other["graph flagship"] = graph_launches["issued"][base]
+            ran["graph flagship"] = graph_launches["ran"][base]
         if general and surface_launches[base]:
             n_other["surface policy_step"] = surface_launches[base]
         if general:
             n_other.update({k: v[base] for k, v in scripts_launches.items()})
-        if n <= 0 or n_monaco <= 0 or not n_other:
+        issued = {"cacc ini" if general else "flagship":
+                      main_run["issued"][name],
+                  "monaco ini" if general else "monaco b768":
+                      monaco_run["issued"][base], **n_other}
+        if min(issued.values()) <= 0 or min(ran.values()) <= 0 \
+                or not n_other:
             raise AssertionError(f"{name} was not launched on its paths")
         kernels.append(dict(
             name=name, route="cuda", source=sources[name[len(base):]],
-            replaces=replaces[base], launches=n,
+            replaces=replaces[base], launches=main_run["issued"][name],
+            device_launches=main_run["ran"][name],
             max_abs_err=e["max_abs_err"], ms=e["ms"],
             plain_ms=e["plain_ms"], bound_ms=e["bound_ms"],
             bound_by=e["bound_by"], library_ms=None,
-            launches_by_path={
-                "cacc ini" if general else "flagship": n,
-                "monaco ini" if general else "monaco b768": n_monaco,
-                **n_other}))
+            launches_by_path=issued, device_launches_by_path=ran))
     # the env kernel: the flagship run's count, and every other path's
-    env_paths = {"flagship": launches["network_env_step"],
-                 "bench": bench_launches["network_env_step"],
-                 **{k: v["network_env_step"]
-                    for k, v in monaco_launches.items()},
+    env = "network_env_step"
+    env_paths = {"flagship": launches["issued"][env],
+                 "bench": bench_launches[env],
+                 "graph flagship": graph_launches["issued"][env],
+                 **{k: v["issued"][env] for k, v in monaco_launches.items()},
                  "scripts train_atsc":
-                     scripts_launches["scripts train_atsc"][
-                         "network_env_step"],
-                 **{k: v["network_env_step"]
-                    for k, v in parallel_launches.items()
-                    if "network_env_step" in v}}
-    if min(env_paths.values()) <= 0 or len(env_paths) < 7:
-        raise AssertionError(f"network_env_step was not launched on its "
-                             f"paths: {env_paths}")
+                     scripts_launches["scripts train_atsc"][env],
+                 **{k: v[env] for k, v in parallel_launches.items()
+                    if env in v}}
+    env_ran = {"flagship": launches["ran"][env],
+               "graph flagship": graph_launches["ran"][env],
+               **{k: v["ran"][env] for k, v in monaco_launches.items()}}
+    if min(env_paths.values()) <= 0 or len(env_paths) < 7 \
+            or min(env_ran.values()) <= 0:
+        raise AssertionError(f"{env} was not launched on its paths: "
+                             f"{env_paths}, on the card {env_ran}")
     kernels.append(dict(
-        name="network_env_step", route="cuda", source=ENV_SOURCE,
-        replaces=ENV_REPLACES, launches=env_paths["flagship"],
-        library_ms=None, launches_by_path=env_paths, **env_entry))
+        name=env, route="cuda", source=ENV_SOURCE, replaces=ENV_REPLACES,
+        launches=env_paths["flagship"], device_launches=env_ran["flagship"],
+        library_ms=None, launches_by_path=env_paths,
+        device_launches_by_path=env_ran, **env_entry))
     log(f"total: {time.perf_counter() - t_start:.1f} s; "
         f"throughput {sps:.1f} env-steps/s on {card}")
     print(json.dumps({"kernels": kernels}))

@@ -86,7 +86,8 @@ def measure(seconds_budget: float = 45.0, num_envs: int = 768,
     init_s = time.perf_counter() - t0
     print(f"init: {init_s:.2f}s", file=sys.stderr, flush=True)
     # warm-up, excluded from the rate: the first use of the kernels builds
-    # them if they are not built yet
+    # them if they are not built yet, and the first train_step captures the
+    # update's CUDA graph (make_a2c's jit, the default)
     t0 = time.perf_counter()
     ts, m = fns.train_step(ts)
     block_until_ready(m["loss"])

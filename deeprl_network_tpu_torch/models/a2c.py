@@ -14,7 +14,7 @@
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -91,13 +91,15 @@ def action_stats(logits: torch.Tensor, actions: torch.Tensor
 
 def a2c_loss_terms(logp_a: torch.Tensor, entropy: torch.Tensor,
                    values: torch.Tensor, returns: torch.Tensor,
-                   advs: torch.Tensor, entropy_coef: float,
+                   advs: torch.Tensor,
+                   entropy_coef: Union[float, torch.Tensor],
                    value_coef: float) -> Tuple[torch.Tensor, LossStats]:
     """Joint A2C loss from per-step policy statistics.
 
     All arrays [..., N]: mean over every leading axis (time, env batch),
     sum over the trailing agent axis. advs/returns enter detached; values
-    carry the critic gradient.
+    carry the critic gradient. ``entropy_coef`` may be a 0-dim f32 tensor
+    (the train step's schedule tensor), which gives what its float gives.
     """
     lead = tuple(range(logp_a.ndim - 1))
     policy_loss = -torch.sum(torch.mean(logp_a * advs.detach(), dim=lead))
@@ -112,7 +114,8 @@ def a2c_loss_terms(logp_a: torch.Tensor, entropy: torch.Tensor,
 
 def a2c_loss(spec: PolicySpec, params: PolicyParams, init_carry: Carry,
              roll: Rollout, returns: torch.Tensor, advs: torch.Tensor,
-             entropy_coef: float, value_coef: float, remat: bool = False,
+             entropy_coef: Union[float, torch.Tensor], value_coef: float,
+             remat: bool = False,
              consts: Optional[PolicyConsts] = None
              ) -> Tuple[torch.Tensor, LossStats]:
     """Joint A2C loss over a [T, B, ...] window: replays the policy over the
@@ -136,7 +139,10 @@ def a2c_loss(spec: PolicySpec, params: PolicyParams, init_carry: Carry,
     for t in range(roll.obs.shape[0]):
         args = (carry, roll.obs[t], roll.fps[t], prev_dones[t])
         if remat:
-            carry, lo, v = checkpoint(step, *args, use_reentrant=False)
+            # the step draws no noise: no RNG state to keep (and a CUDA
+            # graph's capture may not read it)
+            carry, lo, v = checkpoint(step, *args, use_reentrant=False,
+                                      preserve_rng_state=False)
         else:
             carry, lo, v = step(*args)
         logits.append(lo)

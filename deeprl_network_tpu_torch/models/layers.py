@@ -16,7 +16,7 @@ the result to ``device``.
 from __future__ import annotations
 
 import math
-from typing import Callable, List, NamedTuple, Sequence, Tuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -139,15 +139,20 @@ class TF1RMSProp:
     def init(self, params: Sequence[torch.Tensor]) -> RMSPropState:
         return RMSPropState(0, [torch.zeros_like(p) for p in params])
 
-    def update(self, grads: Sequence[torch.Tensor], state: RMSPropState
+    def update(self, grads: Sequence[torch.Tensor], state: RMSPropState,
+               lr: Optional[torch.Tensor] = None
                ) -> Tuple[List[torch.Tensor], RMSPropState]:
+        """``lr``: the learning rate as a device tensor (a CUDA graph's
+        update reads it from there); ``lr_schedule(state.count)`` where
+        None."""
         norm = global_norm(grads)
         clip = norm >= self.max_grad_norm
         grads = [torch.where(clip, g / norm * self.max_grad_norm, g)
                  for g in grads]
         ms = [(1.0 - self.decay) * g * g + self.decay * m
               for g, m in zip(grads, state.ms)]
-        lr = self.lr_schedule(state.count)
+        if lr is None:
+            lr = self.lr_schedule(state.count)
         updates = [g * torch.rsqrt(m + self.eps) * (-lr)
                    for g, m in zip(grads, ms)]
         return updates, RMSPropState(state.count + 1, ms)

@@ -387,9 +387,36 @@ def _masked_axis_consensus(closed: torch.Tensor, leaf: torch.Tensor,
     return out.movedim(1, axis)
 
 
+class ConsensusTables(NamedTuple):
+    """Device copies of the consensus's masks, built once per run so that
+    the update copies nothing from the host (``consensus_update``)."""
+
+    closed: torch.Tensor                # [N, N] A + I
+    mix: torch.Tensor                   # [N, N] row-normalized A + I
+    adj: torch.Tensor                   # [N, N] A
+    action_mask: Optional[torch.Tensor]  # [N, A]
+    obs_mask: Optional[torch.Tensor]    # [N, S]
+
+
+def consensus_tables(neighbor_mask: np.ndarray,
+                     action_mask: Optional[np.ndarray] = None,
+                     obs_mask: Optional[np.ndarray] = None,
+                     device=None) -> ConsensusTables:
+    n = len(neighbor_mask)
+    closed = neighbor_mask.astype(np.float32) + np.eye(n, dtype=np.float32)
+    f32 = lambda m: None if m is None else torch.as_tensor(
+        m.astype(np.float32), device=device)
+    return ConsensusTables(
+        closed=f32(closed), mix=f32(closed / closed.sum(1, keepdims=True)),
+        adj=f32(neighbor_mask), action_mask=f32(action_mask),
+        obs_mask=f32(obs_mask))
+
+
 def consensus_update(params: PolicyParams, neighbor_mask: np.ndarray,
                      action_mask: Optional[np.ndarray] = None,
-                     obs_mask: Optional[np.ndarray] = None) -> PolicyParams:
+                     obs_mask: Optional[np.ndarray] = None,
+                     tables: Optional[ConsensusTables] = None
+                     ) -> PolicyParams:
     """IA2C_CU post-update weight consensus: per-agent weights are averaged
     over the closed neighbourhood.
 
@@ -401,14 +428,15 @@ def consensus_update(params: PolicyParams, neighbor_mask: np.ndarray,
     Dense per-edge blocks [N, N, ...] average block (i, j) only over
     neighbours k that also own an edge to j. Leaves without a leading agent
     axis (COMMNET's shared message map) are returned untouched. On all-ones
-    masks the actor/obs handling reduces exactly to the plain average."""
-    n = len(neighbor_mask)
-    dev = params.w_obs.w.device
-    closed_np = neighbor_mask.astype(np.float32) + np.eye(n, dtype=np.float32)
-    closed = torch.as_tensor(closed_np, device=dev)
-    mix = torch.as_tensor(closed_np / closed_np.sum(1, keepdims=True),
-                          device=dev)
-    adj = torch.as_tensor(neighbor_mask.astype(np.float32), device=dev)
+    masks the actor/obs handling reduces exactly to the plain average.
+
+    ``tables`` (``consensus_tables`` of the same masks on the params'
+    device) replace the masks, which are then not read."""
+    if tables is None:
+        tables = consensus_tables(neighbor_mask, action_mask, obs_mask,
+                                  params.w_obs.w.device)
+    n = tables.closed.shape[0]
+    closed, mix, adj = tables.closed, tables.mix, tables.adj
 
     def plain(leaf):
         if leaf.ndim == 0 or leaf.shape[0] != n:
@@ -420,19 +448,19 @@ def consensus_update(params: PolicyParams, neighbor_mask: np.ndarray,
             return _masked_axis_consensus(closed, leaf, adj, axis=1)
         return tree_map(plain, leaf)
 
-    if action_mask is None and obs_mask is None:
+    if tables.action_mask is None and tables.obs_mask is None:
         return tree_map(plain, params)
 
     actor, w_obs = params.actor, params.w_obs
-    if action_mask is not None:
-        am = torch.as_tensor(action_mask.astype(np.float32), device=dev)
+    if tables.action_mask is not None:
+        am = tables.action_mask
         actor = FCParams(
             w=_masked_axis_consensus(closed, actor.w, am, axis=2),
             b=_masked_axis_consensus(closed, actor.b, am, axis=1))
     else:
         actor = tree_map(plain, actor)
-    if obs_mask is not None:
-        om = torch.as_tensor(obs_mask.astype(np.float32), device=dev)
+    if tables.obs_mask is not None:
+        om = tables.obs_mask
         w_obs = FCParams(
             w=_masked_axis_consensus(closed, w_obs.w, om, axis=1),
             b=plain(w_obs.b))

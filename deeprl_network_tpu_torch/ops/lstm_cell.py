@@ -20,7 +20,8 @@ widths the first does not take; any F and H, tiles chosen by
 ``general_plan``). Each source states its design and its bound.
 Both wrappers count their launches in ``LAUNCHES``: totals under
 ``lstm_cell_fwd`` / ``lstm_cell_bwd`` and, beside them, per variant
-(``lstm_cell_fwd_tc``, ``lstm_cell_fwd_general``, ...).
+(``lstm_cell_fwd_tc``, ``lstm_cell_fwd_general``, ...). A launch that a
+CUDA graph captures counts once, at the capture: its replays run no Python.
 
 Shapes: params = (wx [N,F,4H], wh [N,H,4H], b [N,4H]); carry = (c, h) each
 [B,N,H]; x [B,N,F]; done [B]. float32 or bfloat16 (one dtype for all),
@@ -255,7 +256,13 @@ def _scratch(device, stream: int, N: int, B: int, G: int, splits: int):
     of the same shape (another shape replaces it). Both tensors are written
     and consumed by the two launches of one wrapper call, so reuse is safe
     as long as all calls that share them run in order on one stream, which
-    the key's stream ensures."""
+    the key's stream ensures. Under a CUDA graph's capture they come from
+    the graph's pool instead, for the graph's life: a cached pair may be
+    replaced (and freed) while the graph still replays."""
+    if torch.cuda.is_current_stream_capturing():
+        return (torch.empty((N, B, G), dtype=torch.bfloat16, device=device),
+                torch.empty((N, splits, G), dtype=torch.float32,
+                            device=device))
     key, shape = (str(device), stream), (N, B, G, splits)
     got = _scratch_cache.get(key)
     if got is None or got[0] != shape:

@@ -14,8 +14,9 @@ then that of the selected state, as ``AutoResetEnv.step`` returns it).
 Dispatch is by the tensors' device: CUDA tensors launch the kernel (and
 raise if the launch fails; there is no fallback), CPU tensors run the plain
 twin ``network_env_step_ref``, the PyTorch engine of ``envs/network.py``
-moved here. The wrapper counts its launches in ``LAUNCHES``. Every output is
-a new tensor: the input state is never written, since the rollout reads the
+moved here. The wrapper counts its launches in ``LAUNCHES`` (a launch
+captured into a CUDA graph counts once, at the capture). Every output is a
+new tensor: the input state is never written, since the rollout reads the
 pre-step state after the step.
 
 ``NetworkEnvTables`` holds both forms of the static tables: the dense ones
@@ -289,6 +290,12 @@ def reset_state(state_type, tables: NetworkEnvTables, batch: int,
         dropped=torch.zeros((batch,), device=dev))
 
 
+def _one_hot(x: torch.Tensor, n: int) -> torch.Tensor:
+    """f32 one-hot [..., n] of ``x`` (in range), by comparison:
+    ``F.one_hot`` reads the indices' range back to the host on the CPU."""
+    return (x[..., None] == torch.arange(n, device=x.device)).float()
+
+
 def network_obs_ref(tables: NetworkEnvTables, c: EnvScalars, s):
     """[B, M, W] observation of state ``s``: per node, its lanes' wave
     (queued + approaching), then queue and wait where configured, packed
@@ -305,7 +312,7 @@ def network_obs_ref(tables: NetworkEnvTables, c: EnvScalars, s):
     # packed per-agent: valid dims are the first n_s_ls[i] of each row
     out = feats[:, tables.gather] * tables.gmask
     if tables.use_phase:
-        onehot = torch.nn.functional.one_hot(s.prev_phase, tables.P).float()
+        onehot = _one_hot(s.prev_phase, tables.P)
         out = out + torch.einsum("bmp,mpw->bmw", onehot, tables.phase_place)
     return out
 
@@ -326,7 +333,7 @@ def network_env_step_ref(tables: NetworkEnvTables, c: EnvScalars, s,
     act = torch.minimum(torch.clamp(action.long(), min=0),
                         tables.n_valid - 1)
     # green gate of the chosen phase, per lane: [B, L]
-    onehot = torch.nn.functional.one_hot(act, P).float()
+    onehot = _one_hot(act, P)
     lane_gate = onehot.reshape(B, -1) @ tables.gate
     switched = (act != s.prev_phase).float()               # [B, M]
     # yellow window: lanes of switched nodes see no green for the

@@ -20,11 +20,19 @@ The rank and the world come from torchrun's variables (``RANK``,
   updates; ``ckpt``: a dir to save the final state into, restore it, and
   check the round trip.
 
+Under NCCL the update is one CUDA graph (``make_parallel_a2c``'s ``jit``);
+gloo, whose all-reduce stages through the host, runs eagerly (``jit=False``).
+Under a graph the env step and the all-reduce run in Python only at the
+graph's warm-up and capture, so the actions are not recorded, and the
+launch and all-reduce counts are those issued or captured: two updates'
+worth.
+
 Each rank writes ``DIR/rank<r>.npz`` (final params ``p<i>``, per-env fields
-``<field><j>``, the sampled ``actions`` [updates x T, B, N], per-update
-``loss``) and prints ONE JSON line: metrics and wall time per update, the
+``<field><j>``, the sampled ``actions`` [updates x T, B, N] without ``jit``,
+per-update ``loss``) and prints ONE JSON line: metrics and wall time per update, the
 kernels' launch counts (cell and env step), a digest of the params, the
-gradient all-reduce's size, calls and time. Any failure exits non-zero.
+gradient all-reduce's size, calls (issued or captured) and time. Any
+failure exits non-zero.
 """
 
 from __future__ import annotations
@@ -92,7 +100,8 @@ def run(spec: dict, device: str, out_dir: str) -> dict:
                  train=TrainConfig(**spec.get("train",
                                               {"total_step": 10_000})))
     env = init_env(cfg, device=dev)
-    par = make_parallel_a2c(env, cfg.model, cfg.train, cfg.agent,
+    jit = dist.get_backend() != "gloo"
+    par = make_parallel_a2c(env, cfg.model, cfg.train, cfg.agent, jit=jit,
                             device=dev)
     params = None
     if spec.get("params"):
@@ -128,7 +137,8 @@ def run(spec: dict, device: str, out_dir: str) -> dict:
         reduced.append(sum(t.numel() for t in tensors))
         return reduce_mean(tensors)
 
-    setattr(env, step_name, recording_step)
+    if not jit:
+        setattr(env, step_name, recording_step)
     distributed.all_reduce_mean = counting_reduce
     for counts in (lstm_cell.LAUNCHES, network_env.LAUNCHES):
         for k in counts:
@@ -144,13 +154,17 @@ def run(spec: dict, device: str, out_dir: str) -> dict:
             update_s.append(time.perf_counter() - t0)
             metrics.append({k: float(v) for k, v in m.items()})
     finally:
-        delattr(env, step_name)
+        if not jit:
+            delattr(env, step_name)
         distributed.all_reduce_mean = reduce_mean
     launches = {k: v for k, v in {**lstm_cell.LAUNCHES,
                                   **network_env.LAUNCHES}.items() if v}
-    if len(reduced) != len(metrics):
-        raise AssertionError(f"{len(reduced)} gradient all-reduces in "
-                             f"{len(metrics)} updates")
+    # under a graph: issued by the warm-up and captured, then run by every
+    # replay without Python
+    if len(reduced) != (2 if jit and metrics else len(metrics)):
+        raise AssertionError(f"{len(reduced)} gradient all-reduces issued "
+                             f"or captured in {len(metrics)} updates "
+                             f"(jit={jit})")
 
     if spec.get("ckpt"):
         ckpt = CheckpointManager(spec["ckpt"])
@@ -179,7 +193,8 @@ def run(spec: dict, device: str, out_dir: str) -> dict:
     for k, v in _per_env_leaves(ts).items():
         arrays[k] = (v.float() if v.dtype == torch.bfloat16 else v).cpu() \
             .numpy()
-    arrays["actions"] = torch.stack(actions).cpu().numpy()
+    if actions:
+        arrays["actions"] = torch.stack(actions).cpu().numpy()
     arrays["loss"] = np.array([m["loss"] for m in metrics])
     npz = os.path.join(out_dir, f"rank{r}.npz")
     np.savez(npz, **arrays)
@@ -188,6 +203,7 @@ def run(spec: dict, device: str, out_dir: str) -> dict:
             "step": ts.step, "steps_per_update": par.steps_per_update,
             "metrics": metrics, "update_s": update_s, "launches": launches,
             "params_sha256": digest.hexdigest(),
+            "jit": jit,
             "allreduce": {"calls": len(reduced), "floats": reduced[0],
                           "bytes": 4 * reduced[0], "ms": allreduce_ms},
             "npz": npz}

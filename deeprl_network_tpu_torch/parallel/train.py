@@ -59,11 +59,13 @@ class ParallelA2C(NamedTuple):
 
 
 def make_parallel_a2c(env, mcfg: ModelConfig, tcfg: TrainConfig, agent: str,
-                      envs_per_rank: Optional[int] = None,
+                      envs_per_rank: Optional[int] = None, jit: bool = True,
                       device="cuda") -> ParallelA2C:
     """Data-parallel A2C over the default process group; the global batch
     is ``envs_per_rank`` x world size (default: ``mcfg.num_envs`` split
-    evenly)."""
+    evenly). ``jit`` as in ``make_a2c``: under NCCL the gradient all-reduce
+    is captured in the update's CUDA graph; gloo on CUDA tensors needs
+    ``jit=False``."""
     if not torch.distributed.is_initialized():
         raise ValueError("make_parallel_a2c needs the default process "
                          "group: call deeprl_network_tpu_torch.parallel."
@@ -77,7 +79,8 @@ def make_parallel_a2c(env, mcfg: ModelConfig, tcfg: TrainConfig, agent: str,
                 f"pass envs_per_rank explicitly")
         envs_per_rank = mcfg.num_envs // n
     fns = make_a2c(env, mcfg, tcfg, agent=agent, num_envs=envs_per_rank,
-                   axis_name=DATA_AXIS, n_replicas=n, device=device)
+                   axis_name=DATA_AXIS, n_replicas=n, jit=jit,
+                   device=device)
     offset = distributed.rank() * envs_per_rank
 
     def init_state(seed: int = 0, params: Optional[PolicyParams] = None

@@ -13,6 +13,9 @@ where an update's time goes:
 
 On a CUDA device each variant also reports the kernels one call launches
 (one update, or one ``env_scan`` of T steps), counted under torch.profiler.
+The train steps take ``make_a2c``'s default ``jit``, so an update is one
+replay of its CUDA graph; the profiler reports the graph's kernels one by
+one.
 
     python -m deeprl_network_tpu_torch.scripts.profile_step --num-envs 512
     python -m deeprl_network_tpu_torch.scripts.profile_step --num-envs 768 \\

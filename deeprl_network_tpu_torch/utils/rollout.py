@@ -23,6 +23,16 @@ Two gradient paths share one rollout step (``_env_policy_step``):
   window, then ``models/a2c.a2c_loss`` runs the policy again over it from
   the carry the window started with.
 
+``train_step`` is a host wrapper around the update body ``_update``, a
+function of tensors only that reads nothing back to the host: the wrapper
+computes the entropy coefficient, the kickstart weight and the learning
+rate on the host (from ``ts.step`` and the optimizer's count, which stay
+host ints that it advances) into a small f32 tensor the body reads. With
+``jit=True`` (the default, the JAX package's ``jax.jit(train_step,
+donate_argnums=0)``) a CUDA device runs the body as one CUDA graph an
+update (``utils/graph.py``): captured at the first call, replayed at every
+later one. On the CPU, and with ``jit=False``, the body runs eagerly.
+
 ``eval_episode`` and ``record_episode`` run one env instance (B = 1 through
 the same batched functions) with f32 params.
 
@@ -40,7 +50,9 @@ gradients and the device-side metrics are averaged over ranks by one
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, NamedTuple, Optional, Tuple, Union
+from typing import (
+    Any, Callable, Dict, List, NamedTuple, Optional, Tuple, Union,
+)
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -56,13 +68,14 @@ from deeprl_network_tpu_torch.models.layers import (
     RMSPropState, TF1RMSProp, global_norm, tf1_rmsprop,
 )
 from deeprl_network_tpu_torch.models.policies import (
-    AGENT_TO_COMM, Carry, PolicyParams, PolicySpec, consensus_update,
-    init_carry, init_fingerprint, init_policy_params, mask_comm_params,
-    policy_consts, policy_step_batched, tree_leaves, tree_map,
-    tree_unflatten,
+    AGENT_TO_COMM, Carry, PolicyParams, PolicySpec, consensus_tables,
+    consensus_update, init_carry, init_fingerprint, init_policy_params,
+    mask_comm_params, policy_consts, policy_step_batched, tree_leaves,
+    tree_map, tree_unflatten,
 )
 from deeprl_network_tpu_torch.parallel import distributed
 from deeprl_network_tpu_torch.utils.device import resolve_device
+from deeprl_network_tpu_torch.utils.graph import GraphedStep, HostScalars
 from deeprl_network_tpu_torch.utils.scheduler import make_schedule
 
 
@@ -90,6 +103,47 @@ PER_ENV_FIELDS = ("env_state", "obs", "fp", "carry", "prev_done", "ep_ret",
                   "ep_len", "last_ep_ret", "last_ep_len")
 
 
+def state_leaves(ts: TrainState) -> List[torch.Tensor]:
+    """The TrainState's tensors in a fixed order: params, the optimizer's
+    running means, the env state, then the per-env fields."""
+    return (tree_leaves(ts.params) + list(ts.opt_state.ms)
+            + tree_leaves(ts.env_state)
+            + [ts.obs, ts.fp, ts.carry.c, ts.carry.h, ts.prev_done,
+               ts.ep_ret, ts.ep_len, ts.last_ep_ret, ts.last_ep_len])
+
+
+def state_skeleton(ts: TrainState):
+    """``ts``'s structure without its tensors, what ``state_from_leaves``
+    reads of its ``like``."""
+    zero = lambda _: 0
+    return _Skeleton(tree_map(zero, ts.params),
+                     RMSPropState(0, [0] * len(ts.opt_state.ms)),
+                     tree_map(zero, ts.env_state))
+
+
+class _Skeleton(NamedTuple):
+    params: Any
+    opt_state: RMSPropState
+    env_state: Any
+
+
+def state_from_leaves(like, leaves: List[torch.Tensor], step: int,
+                      count: int, generator: torch.Generator) -> TrainState:
+    """A TrainState of ``like``'s structure (a TrainState or its
+    ``state_skeleton``) holding ``leaves`` (in ``state_leaves`` order),
+    with the given host counters and generator."""
+    it = iter(leaves)
+    params = tree_map(lambda _: next(it), like.params)
+    ms = [next(it) for _ in like.opt_state.ms]
+    env_state = tree_map(lambda _: next(it), like.env_state)
+    obs, fp, c, h, prev_done, ep_ret, ep_len, last_ret, last_len = it
+    return TrainState(
+        params=params, opt_state=RMSPropState(count, ms),
+        env_state=env_state, obs=obs, fp=fp, carry=Carry(c, h),
+        prev_done=prev_done, generator=generator, step=step, ep_ret=ep_ret,
+        ep_len=ep_len, last_ep_ret=last_ret, last_ep_len=last_len)
+
+
 def make_policy_spec(env_spec, mcfg: ModelConfig, agent: str) -> PolicySpec:
     return PolicySpec(
         n_agent=env_spec.n_agent,
@@ -115,7 +169,12 @@ class A2CFns(NamedTuple):
     spec: PolicySpec
     optimizer: TF1RMSProp
     steps_per_update: int = 0  # global env steps one train_step consumes
-
+    # the body train_step runs, eagerly or as a graph: (ts, schedule tensor
+    # [beta, kick_w, lr], gumbel or None, generator) -> (ts', metrics)
+    update: Optional[Callable] = None
+    # train_step's CUDA graphs (jit on a card; their capture times), else
+    # None
+    graphed: Optional[GraphedStep] = None
 
 
 
@@ -152,9 +211,14 @@ def _default_horizon(env) -> int:
 
 def make_a2c(env, mcfg: ModelConfig, tcfg: TrainConfig, agent: str = "ia2c",
              num_envs: Optional[int] = None, axis_name: Optional[str] = None,
-             n_replicas: int = 1, device="cuda") -> A2CFns:
+             n_replicas: int = 1, jit: bool = True, device="cuda") -> A2CFns:
     """Build the A2C functions for one env + algorithm on ``device`` (the
     env must live on the same device).
+
+    ``jit``: on a CUDA device, ``train_step`` runs each update as one
+    replay of a CUDA graph (one graph for calls with ``gumbel`` and one
+    without); ``jit=False`` issues every kernel from Python. On the CPU it
+    changes nothing. A failed capture or replay raises.
 
     ``axis_name``: if set, this process is one rank of the default
     ``torch.distributed`` process group (``parallel/distributed.py``
@@ -179,6 +243,12 @@ def make_a2c(env, mcfg: ModelConfig, tcfg: TrainConfig, agent: str = "ia2c",
                 f"n_replicas={n_replicas} but the process group has "
                 f"{distributed.world_size()} ranks")
         rank = distributed.rank()
+        if (jit and dev.type == "cuda"
+                and torch.distributed.get_backend() == "gloo"):
+            raise ValueError(
+                "jit=True captures the update in a CUDA graph, and the gloo "
+                "backend stages its all-reduce through the host, which a "
+                "graph cannot hold: pass jit=False")
     cdt = torch.bfloat16 if mcfg.compute_dtype == "bfloat16" \
         else torch.float32
     if cdt != torch.float32 and not mcfg.fused_grad:
@@ -221,6 +291,12 @@ def make_a2c(env, mcfg: ModelConfig, tcfg: TrainConfig, agent: str = "ia2c",
         max_grad_norm=mcfg.max_grad_norm)
     uniform_fp = init_fingerprint(spec, device=dev)
     n_agent, n_act = spec.n_agent, spec.n_a_max
+    cons_tables = None
+    if consensus:
+        cons_tables = consensus_tables(
+            env.spec.neighbor_mask,
+            env.spec.action_mask if mcfg.consensus_masked else None,
+            env.spec.obs_mask if mcfg.consensus_masked else None, dev)
 
     def _prep_params(params: PolicyParams) -> PolicyParams:
         """Masked (+ cast) params for the hot path: mask ONCE per update,
@@ -279,9 +355,11 @@ def make_a2c(env, mcfg: ModelConfig, tcfg: TrainConfig, agent: str = "ia2c",
         the forward is checkpointed); everything that comes out of the env
         is a constant either way."""
         if mcfg.remat and torch.is_grad_enabled():
+            # no noise is drawn inside, so the RNG state need not be kept
+            # (and a CUDA graph's capture may not read it)
             carry, logits, values = checkpoint(
                 vpstep, mparams, st.carry, st.obs, st.fp, st.prev_done,
-                use_reentrant=False)
+                use_reentrant=False, preserve_rng_state=False)
         else:
             carry, logits, values = vpstep(mparams, st.carry, st.obs, st.fp,
                                            st.prev_done)
@@ -326,18 +404,19 @@ def make_a2c(env, mcfg: ModelConfig, tcfg: TrainConfig, agent: str = "ia2c",
         r = spatial_mix(r, D)
         return nstep_returns(r, done_seq, v_boot, gamma)
 
-    def _rollout(mparams, ts: TrainState, gumbel, keys):
-        """T shared steps from ``ts``; the records named in ``keys`` (and
-        the info series) as lists over time."""
+    def _rollout(mparams, ts: TrainState, gumbel, keys, generator):
+        """T shared steps from ``ts``, drawing from ``generator``; the
+        records named in ``keys`` (and the info series) as lists over
+        time."""
         st = _LoopState(ts.env_state, ts.obs, ts.fp, ts.carry, ts.prev_done,
                         ts.ep_ret, ts.ep_len, ts.last_ep_ret, ts.last_ep_len)
         seqs: Dict[str, list] = {k: [] for k in keys}
         infos: Dict[str, list] = {}
         for t in range(T):
             g = (gumbel[t].to(dev) if gumbel is not None else
-                 gumbel_noise(ts.generator, (n_global, n_agent, n_act),
+                 gumbel_noise(generator, (n_global, n_agent, n_act),
                               dev)[row0:row0 + n_env])
-            st, rec = _env_policy_step(mparams, st, g, ts.generator)
+            st, rec = _env_policy_step(mparams, st, g, generator)
             if torch.is_grad_enabled():     # the fused path's loss terms
                 rec["logp"], rec["ent"] = action_stats(rec["logits"],
                                                        rec["actions"])
@@ -349,7 +428,7 @@ def make_a2c(env, mcfg: ModelConfig, tcfg: TrainConfig, agent: str = "ia2c",
                  for k, v in infos.items()}
         return st, {k: torch.stack(v) for k, v in seqs.items()}, extra
 
-    def _fused_loss(ts, params, beta, kick_w, gumbel):
+    def _fused_loss(ts, params, beta, kick_w, gumbel, generator):
         """Single-pass update: the loss is a function of the rollout itself,
         and gradients flow through the LSTM carry chain exactly as in the
         replay (same truncated-BPTT window)."""
@@ -357,7 +436,7 @@ def make_a2c(env, mcfg: ModelConfig, tcfg: TrainConfig, agent: str = "ia2c",
         keys = ["logp", "ent", "values", "train_reward", "reward", "done_f"]
         if use_kick:
             keys.append("teacher_ce")
-        st, seq, extra = _rollout(mparams, ts, gumbel, keys)
+        st, seq, extra = _rollout(mparams, ts, gumbel, keys, generator)
         with torch.no_grad():
             _, _, v_boot = vpstep(mparams, st.carry, st.obs, st.fp,
                                   st.prev_done)
@@ -375,7 +454,7 @@ def make_a2c(env, mcfg: ModelConfig, tcfg: TrainConfig, agent: str = "ia2c",
             extra["kick_ce"] = torch.mean(ce.detach())
         return loss, stats, st, extra
 
-    def _replay_loss(ts, params, beta, gumbel):
+    def _replay_loss(ts, params, beta, gumbel, generator):
         """Two-pass update: a rollout without gradients, then the policy
         run again over the recorded window for truncated BPTT."""
         with torch.no_grad():
@@ -384,7 +463,7 @@ def make_a2c(env, mcfg: ModelConfig, tcfg: TrainConfig, agent: str = "ia2c",
             st, seq, extra = _rollout(
                 mparams, ts, gumbel,
                 ["obs", "fp", "prev_done", "actions", "reward", "values",
-                 "done_f"])
+                 "done_f"], generator)
             _, _, v_boot = vpstep(mparams, st.carry, st.obs, st.fp,
                                   st.prev_done)
             returns = _returns_pipeline(seq["reward"], seq["done_f"], v_boot)
@@ -400,24 +479,24 @@ def make_a2c(env, mcfg: ModelConfig, tcfg: TrainConfig, agent: str = "ia2c",
         extra["step_reward"] = torch.mean(seq["reward"].sum(-1))
         return loss, stats, st, extra
 
-    def train_step(ts: TrainState, gumbel: Optional[torch.Tensor] = None
-                   ) -> Tuple[TrainState, Dict[str, Any]]:
-        """One update. ``gumbel`` [T, B, N, A] (this rank's rows) replaces
-        the sampling noise drawn from ``ts.generator`` (tests feed the JAX
-        run's noise)."""
-        beta = ent_sched(ts.step)
+    def _update(ts: TrainState, sched: torch.Tensor,
+                gumbel: Optional[torch.Tensor], generator: torch.Generator
+                ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        """The update body: a function of tensors that reads nothing back
+        to the host. ``sched`` [3] f32 holds the entropy coefficient, the
+        kickstart weight and the learning rate; the draws come from
+        ``generator``. The host counters of the returned state are those of
+        ``ts`` advanced by one update (the wrapper sets them)."""
+        beta, kick_w, lr = sched[0], sched[1], sched[2]
         leaves = [p.detach().requires_grad_(True)
                   for p in tree_leaves(ts.params)]
         params = tree_unflatten(ts.params, leaves)
         if mcfg.fused_grad:
-            # kickstart weight anneals linearly to 0 at
-            # kickstart_ratio * total_step
-            kick_w = mcfg.kickstart_coef * min(max(
-                1.0 - ts.step / kick_horizon, 0.0), 1.0)
             loss, stats, st, extra = _fused_loss(ts, params, beta, kick_w,
-                                                 gumbel)
+                                                 gumbel, generator)
         else:
-            loss, stats, st, extra = _replay_loss(ts, params, beta, gumbel)
+            loss, stats, st, extra = _replay_loss(ts, params, beta, gumbel,
+                                                  generator)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g
                  for p, g in zip(leaves, grads)]
@@ -439,30 +518,65 @@ def make_a2c(env, mcfg: ModelConfig, tcfg: TrainConfig, agent: str = "ia2c",
             grads = out[:len(grads)]
             dev_metrics = dict(zip(names, out[len(grads):]))
         grad_norm = global_norm(grads)
-        updates, opt_state = optimizer.update(grads, ts.opt_state)
+        updates, opt_state = optimizer.update(grads, ts.opt_state, lr=lr)
         new_params = tree_unflatten(
             ts.params, [(p.detach() + u).to(p.dtype)
                         for p, u in zip(leaves, updates)])
         if consensus:
-            if mcfg.consensus_masked:
-                new_params = consensus_update(
-                    new_params, env.spec.neighbor_mask, env.spec.action_mask,
-                    env.spec.obs_mask)
-            else:
-                new_params = consensus_update(new_params,
-                                              env.spec.neighbor_mask)
+            new_params = consensus_update(
+                new_params, env.spec.neighbor_mask, tables=cons_tables)
 
         new_ts = TrainState(
             params=new_params, opt_state=opt_state, env_state=st.env_state,
             obs=st.obs, fp=st.fp,
             # truncated BPTT: the next window starts from a constant carry
             carry=Carry(st.carry.c.detach(), st.carry.h.detach()),
-            prev_done=st.prev_done, generator=ts.generator,
+            prev_done=st.prev_done, generator=generator,
             step=ts.step + steps_per_update, ep_ret=st.ep_ret,
             ep_len=st.ep_len, last_ep_ret=st.last_ret,
             last_ep_len=st.last_len)
-        metrics = {**dev_metrics, "grad_norm": grad_norm,
-                   "lr": lr_env_sched(ts.step), "beta": beta}
+        return new_ts, {**dev_metrics, "grad_norm": grad_norm}
+
+    feed = HostScalars(3, dev)
+    graphed = None
+    skeleton: list = []           # the state's structure, from the first call
+    if jit and dev.type == "cuda":
+        def _flat_update(leaves, sched, extras, generator):
+            ts = state_from_leaves(skeleton[0], leaves, 0, 0, generator)
+            new_ts, metrics = _update(ts, sched, extras[0], generator)
+            return state_leaves(new_ts), metrics
+
+        graphed = GraphedStep(_flat_update, dev, n_scalars=3)
+
+    def train_step(ts: TrainState, gumbel: Optional[torch.Tensor] = None
+                   ) -> Tuple[TrainState, Dict[str, Any]]:
+        """One update. ``gumbel`` [T, B, N, A] (this rank's rows) replaces
+        the sampling noise drawn from ``ts.generator`` (tests feed the JAX
+        run's noise). ``ts`` is not written; its generator advances by the
+        update's draws."""
+        if gumbel is not None and tuple(gumbel.shape) != (
+                T, n_env, env.spec.n_agent, env.spec.n_a_max):
+            raise ValueError(f"gumbel has shape {tuple(gumbel.shape)}, the "
+                             f"update draws [T, B, N, A] = "
+                             f"{[T, n_env, env.spec.n_agent, n_act]}")
+        beta = ent_sched(ts.step)
+        # kickstart weight anneals linearly to 0 at
+        # kickstart_ratio * total_step
+        kick_w = mcfg.kickstart_coef * min(max(
+            1.0 - ts.step / kick_horizon, 0.0), 1.0)
+        sched = (beta, kick_w, optimizer.lr_schedule(ts.opt_state.count))
+        if graphed is None:
+            new_ts, metrics = _update(ts, feed.tensor(sched), gumbel,
+                                      ts.generator)
+        else:
+            if not skeleton:
+                skeleton.append(state_skeleton(ts))
+            leaves, metrics = graphed(gumbel is not None, state_leaves(ts),
+                                      sched, [gumbel], ts.generator)
+            new_ts = state_from_leaves(
+                ts, leaves, ts.step + steps_per_update,
+                ts.opt_state.count + 1, ts.generator)
+        metrics = {**metrics, "lr": lr_env_sched(ts.step), "beta": beta}
         return new_ts, metrics
 
     def _episode_start(params, seed_or_generator):
@@ -569,4 +683,5 @@ def make_a2c(env, mcfg: ModelConfig, tcfg: TrainConfig, agent: str = "ia2c",
     return A2CFns(init_state=init_state, train_step=train_step,
                   eval_episode=eval_episode, record_episode=record_episode,
                   spec=spec, optimizer=optimizer,
-                  steps_per_update=steps_per_update)
+                  steps_per_update=steps_per_update, update=_update,
+                  graphed=graphed)
