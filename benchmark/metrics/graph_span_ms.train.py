@@ -1,0 +1,12 @@
+"""Milliseconds an update on the card of the ``graph`` span, from the graph's
+first node to its last: the replay measured inside, against
+``update_device_ms`` from outside, from the program's span marks in the
+traced stretch (``benchmark/marks.py``): the median over the traced
+updates."""
+
+from benchmark.marks import median_over_updates, span_ms
+
+
+def read(obs):
+    return median_over_updates(obs.get("trace"),
+                               lambda u: span_ms(u, "graph"))

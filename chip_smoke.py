@@ -74,9 +74,9 @@ Phases (any failure raises, exits non-zero and prints no result line):
      warm-up update: the JSON line with the prefix ``bench:``; the window
      runs untraced, and the wrappers' counts are asserted, 2 x (241 + 120)
      ``tc`` and 2 x 120 env steps: the warm-up's capture) and
-     ``scripts/profile_step.py``'s variants ``full_ma2c_nc``, ``ia2c`` and
-     ``env_only`` at the flagship levers (5 timed calls each), with the
-     kernels of one call;
+     ``scripts/profile_step.py``'s variants ``full_ma2c_nc`` and ``ia2c`` at
+     the flagship levers (5 timed calls each), with the kernels of one
+     call, and the ``env`` span of ``full_ma2c_nc``'s updates (``env_span``);
   9. families: the same step for each of the six agents (a warm-up and 2
      timed steps each), the wrappers' counts and the kernels on the card
      asserted; for IA2C_CU also that the weight consensus ran;
@@ -98,7 +98,8 @@ Phases (any failure raises, exits non-zero and prints no result line):
      remat: a warm-up and 2 timed steps);
  14. cli: in a temporary directory, the port's CLI on a copy of that file
      with ``total_step`` cut to 5 updates: ``train`` with ``in_train_test``
-     (log rows, a test row, the config snapshot, checkpoints), ``train
+     (log rows with each span's mean, a test row, the config snapshot,
+     checkpoints), ``train
      --restore`` with a doubled budget, ``evaluate`` from the checkpoint and
      ``evaluate --naive``, launch counts asserted around each; then a
      ``Trainer`` run with the time inside and outside ``train_step`` read
@@ -1246,8 +1247,8 @@ def run_graph(card: str):
 def run_bench(card: str):
     """The throughput tools' twins: ``bench.py``'s measure at the flagship
     over a 15 s window, its launch counts asserted, and ``profile_step``'s
-    three variants at the flagship levers with the kernels of one call
-    each; returns the window's launch counts."""
+    variants at the flagship levers with the kernels of one call each;
+    returns the window's launch counts."""
     import math
     from deeprl_network_tpu_torch import bench
     from deeprl_network_tpu_torch.scripts import profile_step
@@ -1274,11 +1275,12 @@ def run_bench(card: str):
     res, kernels = profile_step.run(num_envs=768, dtype="bfloat16",
                                     sparse_comm=True, remat=True, n=5)
     for name, dt in res.items():
-        n_k, k_s = kernels[name]
-        log(f"bench profile_step {name}: {dt * 1e3:.2f} ms a call, {n_k} "
-            f"kernels a call, {k_s * 1e3:.2f} ms of kernel time (busy share "
-            f"{k_s / dt:.4f}; B=768, T=120, bf16, sparse_comm, remat) on "
-            f"{card}")
+        line = f"bench profile_step {name}: {dt * 1e3:.2f} ms a call"
+        if name in kernels:
+            n_k, k_s = kernels[name]
+            line += (f", {n_k} kernels a call, {k_s * 1e3:.2f} ms of kernel "
+                     f"time (busy share {k_s / dt:.4f})")
+        log(f"{line} (B=768, T=120, bf16, sparse_comm, remat) on {card}")
     log(f"bench: phase {time.perf_counter() - t_phase:.1f} s")
     return launches
 
@@ -1604,6 +1606,13 @@ def run_cli(card: str):
             if not all(torch.isfinite(torch.tensor(float(v)))
                        for v in r.values()):
                 raise AssertionError(f"cli train: non-finite log row {r}")
+        # on a card each row carries every span's mean (utils/spans.py)
+        spans = {k: float(v) for k, v in rows[-1].items()
+                 if k.startswith("span/")}
+        if not {"span/update_ms", "span/env_ms", "span/launch_ms"} <= set(
+                spans) or not spans["span/update_ms"] > 0:
+            raise AssertionError(f"cli train: span columns {spans}")
+        log(f"cli train: the last row's spans (ms) {json.dumps(spans)}")
         log(f"cli train: {n_upd} updates with one test of {n_test_seeds} "
             f"episodes in {wall:.2f} s; logged env-steps/s "
             f"{[float(r['env_steps_per_s']) for r in rows]}; test "

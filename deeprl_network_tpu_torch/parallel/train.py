@@ -53,6 +53,10 @@ class ParallelA2C(NamedTuple):
         return self.fns.spec
 
     @property
+    def spans(self):
+        return self.fns.spans
+
+    @property
     def steps_per_update(self) -> int:
         # already GLOBAL steps: make_a2c was given n_replicas = world size
         return self.fns.steps_per_update

@@ -7,15 +7,15 @@ where an update's time goes:
   full_ma2c_nc : fused MA2C_NC train step (rollout + BPTT + update)
   ia2c         : the same without the comm einsums (isolates the NeurComm
                  message cost)
-  env_only     : T steps of the batched env dynamics with auto-reset under
-                 ``torch.no_grad()``, uniform actions drawn on the device,
-                 no policy (isolates the store-and-forward engine)
+  env_span     : on a CUDA device, the ``env`` span of ``full_ma2c_nc``'s
+                 timed updates (``fns.spans``: the env's step with
+                 auto-reset inside the graphed update, from its sampled
+                 steps scaled to the window), the mean over the updates
 
-On a CUDA device each variant also reports the kernels one call launches
-(one update, or one ``env_scan`` of T steps), counted under torch.profiler.
-The train steps take ``make_a2c``'s default ``jit``, so an update is one
-replay of its CUDA graph; the profiler reports the graph's kernels one by
-one.
+On a CUDA device each train step also reports the kernels one update
+launches, counted under torch.profiler. The train steps take
+``make_a2c``'s default ``jit``, so an update is one replay of its CUDA
+graph; the profiler reports the graph's kernels one by one.
 
     python -m deeprl_network_tpu_torch.scripts.profile_step --num-envs 512
     python -m deeprl_network_tpu_torch.scripts.profile_step --num-envs 768 \\
@@ -36,9 +36,9 @@ import torch
 from deeprl_network_tpu_torch.bench import block_until_ready
 from deeprl_network_tpu_torch.config import EnvConfig, ModelConfig, TrainConfig
 from deeprl_network_tpu_torch.envs.grid import LargeGridEnv
-from deeprl_network_tpu_torch.envs.wrappers import AutoResetEnv
 from deeprl_network_tpu_torch.utils.device import resolve_device
 from deeprl_network_tpu_torch.utils.rollout import make_a2c
+from deeprl_network_tpu_torch.utils.spans import mean_ms
 
 
 def time_it(fn, arg, n=20, sync=lambda out: out, thread=False):
@@ -73,29 +73,11 @@ def count_kernels(fn, arg):
             sum(ev.self_device_time_total for ev in evs) / 1e6)
 
 
-def env_scan(wenv: AutoResetEnv, state, obs, generator: torch.Generator,
-             T: int, actions=None):
-    """T steps of ``wenv`` (batched, with auto-reset) from ``state`` under
-    ``torch.no_grad()``; returns (state, obs, rewards [T, B, N]). Each
-    step's actions are drawn uniformly in [0, n_a_max) from ``generator``
-    on the obs' device, unless ``actions`` [T, B, N] are given."""
-    B, dev = obs.shape[0], obs.device
-    shape = (B, wenv.spec.n_agent)
-    rewards = []
-    with torch.no_grad():
-        for t in range(T):
-            a = (actions[t] if actions is not None else
-                 torch.randint(0, wenv.spec.n_a_max, shape,
-                               generator=generator, device=dev))
-            state, obs, r, _, _ = wenv.step(state, a, generator)
-            rewards.append(r)
-        return state, obs, torch.stack(rewards)
-
-
 def run(num_envs=512, t=120, dtype="float32", sparse_comm=False,
         remat=False, n=20, device="cuda"):
     """({variant: seconds per call}, {variant: (kernels, their device
-    seconds) of one call}); the kernels only on a CUDA device."""
+    seconds) of one call}); ``env_span`` and the kernels only on a CUDA
+    device."""
     dev = resolve_device(device)
     B, T = num_envs, t
     ecfg = EnvConfig(scenario="large_grid", coop_gamma=0.9)
@@ -104,7 +86,7 @@ def run(num_envs=512, t=120, dtype="float32", sparse_comm=False,
 
     def report(name, what, dt, fn, arg):
         line = f"{name}: {dt*1e3:.1f} {what} ({B*T/dt/1e6:.3f}M steps/s)"
-        if dev.type == "cuda":
+        if fn is not None:
             kernels[name] = count_kernels(fn, arg)
             line += (f", {kernels[name][0]} kernels a call, "
                      f"{kernels[name][1]*1e3:.1f} ms of kernel time")
@@ -118,17 +100,16 @@ def run(num_envs=512, t=120, dtype="float32", sparse_comm=False,
         ts = fns.init_state(0)
         res[name] = time_it(fns.train_step, ts, n=n,
                             sync=lambda out: out[1]["loss"], thread=True)
-        report(name, "ms/update", res[name], fns.train_step, ts)
+        # read before the profiler counts the kernels: a trace slows every
+        # later CUDA call of its process
+        env = mean_ms(fns.spans.read(n)).get("env")
+        cuda = dev.type == "cuda"
+        report(name, "ms/update", res[name], fns.train_step if cuda else None,
+               ts)
+        if name == "full_ma2c_nc" and env is not None:
+            res["env_span"] = env / 1e3
+            report("env_span", "ms an update", res["env_span"], None, None)
         del fns, ts
-
-    # env-only scan: T steps of batched dynamics + auto-reset, no policy
-    wenv = AutoResetEnv(LargeGridEnv(ecfg, device=dev))
-    gen = torch.Generator(device=dev).manual_seed(0)
-    state, obs = wenv.reset(B, gen)
-    scan = lambda s: env_scan(wenv, s, obs, gen, T)
-    res["env_only"] = time_it(scan, state, n=n,
-                              sync=lambda out: out[2].sum())
-    report("env_only", "ms", res["env_only"], scan, state)
     return res, kernels
 
 

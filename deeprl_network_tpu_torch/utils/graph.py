@@ -32,6 +32,10 @@ of copies in place of every kernel launch of the update from Python:
 
 Nothing runs in Python at a replay: code that counts or watches calls (the
 kernel wrappers' launch counters) sees the warm-up and the capture only.
+So the graph's own span (``utils/spans.py``) is two marks captured as its
+first and last nodes, around ``fn`` and the pack of its outputs; the host
+spans ``copy_in``, ``scalars_write`` and ``launch`` time a call's copies into
+the static inputs, the scalars' write and the replay.
 
 There is no fallback: a capture or a replay that fails raises. On the CPU
 nothing here is used; the caller runs its function directly.
@@ -46,6 +50,8 @@ from typing import (
 )
 
 import torch
+
+from deeprl_network_tpu_torch.utils.spans import Spans
 
 ALIGN_BYTES = 512     # the caching allocator's block alignment
 
@@ -179,9 +185,10 @@ class GraphedStep:
 
     ``graph`` makes a graph and ``capture(g, stream)`` is its capture
     context (a stand-in pair runs the capture and replay contract without
-    a card)."""
+    a card). ``spans`` gets the graph's marks and the host spans of each
+    call (on the CPU its marks do nothing)."""
 
-    def __init__(self, fn: StepFn, device, n_scalars: int,
+    def __init__(self, fn: StepFn, device, n_scalars: int, spans: Spans,
                  graph: Callable = None, capture: Callable = None):
         self.fn = fn
         self.device = torch.device(device)
@@ -192,6 +199,7 @@ class GraphedStep:
         self.generator = torch.Generator(device=self.device)
         self.scalars = HostScalars(n_scalars, self.device)
         self.graphs: Dict[Hashable, _Captured] = {}
+        self.spans = spans
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -230,12 +238,14 @@ class GraphedStep:
         if cuda:
             g.register_generator_state(self.generator)
         with self._capture(g, side):
+            self.spans.begin("graph")
             new_state, outputs = self.fn(views_in, scalars_in, extras_in,
                                          self.generator)
             names = list(outputs)
             leaves = list(new_state) + [outputs[k] for k in names]
             out_arena = Arena(leaves)
             out_bufs = out_arena.pack(leaves, self.device)
+            self.spans.end("graph")
         self._sync()
         times["capture_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -265,16 +275,19 @@ class GraphedStep:
         if got is None:
             got = self._capture_key(key, state, scalars, extras, generator)
         else:
-            got.arena_in.copy_in(got.state_in, state)
-            self.scalars.write(scalars, got.scalars_in)
-            for static, e in zip(got.extras_in, extras):
-                if (static is None) != (e is None):
-                    raise ValueError(f"graph {key!r} was captured with "
-                                     f"other extras")
-                if e is not None:
-                    static.copy_(e)
+            with self.spans.host("copy_in"):
+                got.arena_in.copy_in(got.state_in, state)
+                for static, e in zip(got.extras_in, extras):
+                    if (static is None) != (e is None):
+                        raise ValueError(f"graph {key!r} was captured with "
+                                         f"other extras")
+                    if e is not None:
+                        static.copy_(e)
+            with self.spans.host("scalars_write"):
+                self.scalars.write(scalars, got.scalars_in)
         self.generator.set_state(generator.get_state())
-        got.graph.replay()
+        with self.spans.host("launch"):
+            got.graph.replay()
         generator.set_state(self.generator.get_state())
         bufs = {dt: b.clone() for dt, b in got.out_bufs.items()}
         views = got.out_arena.views(bufs)

@@ -33,6 +33,11 @@ donate_argnums=0)``) a CUDA device runs the body as one CUDA graph an
 update (``utils/graph.py``): captured at the first call, replayed at every
 later one. On the CPU, and with ``jit=False``, the body runs eagerly.
 
+Spans (``utils/spans.py``): the body marks its spans on the card (update,
+rollout, sampled steps with their policy and env, returns, backward,
+all-reduce, optimizer; the graph adds its own), and ``train_step`` times its
+host spans; ``fns.spans.read(n)`` reads the last n updates.
+
 ``eval_episode`` and ``record_episode`` run one env instance (B = 1 through
 the same batched functions) with f32 params.
 
@@ -77,6 +82,7 @@ from deeprl_network_tpu_torch.parallel import distributed
 from deeprl_network_tpu_torch.utils.device import resolve_device
 from deeprl_network_tpu_torch.utils.graph import GraphedStep, HostScalars
 from deeprl_network_tpu_torch.utils.scheduler import make_schedule
+from deeprl_network_tpu_torch.utils.spans import Spans
 
 
 @dataclass
@@ -175,7 +181,9 @@ class A2CFns(NamedTuple):
     # train_step's CUDA graphs (jit on a card; their capture times), else
     # None
     graphed: Optional[GraphedStep] = None
-
+    # the updates' spans and their reader (utils/spans.py): ``spans.read(n)``
+    # for the last n updates, ``spans.means(n)`` each span's mean ms
+    spans: Optional[Spans] = None
 
 
 class _LoopState(NamedTuple):
@@ -297,6 +305,8 @@ def make_a2c(env, mcfg: ModelConfig, tcfg: TrainConfig, agent: str = "ia2c",
             env.spec.neighbor_mask,
             env.spec.action_mask if mcfg.consensus_masked else None,
             env.spec.obs_mask if mcfg.consensus_masked else None, dev)
+    spans = Spans(T, dev, graph=jit and dev.type == "cuda",
+                  allreduce=axis_name is not None)
 
     def _prep_params(params: PolicyParams) -> PolicyParams:
         """Masked (+ cast) params for the hot path: mask ONCE per update,
@@ -347,13 +357,14 @@ def make_a2c(env, mcfg: ModelConfig, tcfg: TrainConfig, agent: str = "ia2c",
             last_ep_len=zeros())
 
     def _env_policy_step(mparams, st: _LoopState, g: torch.Tensor,
-                         generator: torch.Generator):
+                         generator: torch.Generator, t: int):
         """The ONE rollout step both gradient paths share: policy forward,
         Gumbel-max sampling with the noise ``g``, env step + auto-reset,
         fingerprint refresh, episode bookkeeping. With autograd on, the
         logits, values and carry keep their graph (and, under ``remat``,
         the forward is checkpointed); everything that comes out of the env
-        is a constant either way."""
+        is a constant either way. ``t`` is the step's index in the window
+        (its ``env`` span is marked where it is sampled)."""
         if mcfg.remat and torch.is_grad_enabled():
             # no noise is drawn inside, so the RNG state need not be kept
             # (and a CUDA graph's capture may not read it)
@@ -366,8 +377,10 @@ def make_a2c(env, mcfg: ModelConfig, tcfg: TrainConfig, agent: str = "ia2c",
         with torch.no_grad():
             actions = torch.argmax(logits + g, dim=-1)
             new_fp = torch.softmax(logits, dim=-1)
+            spans.begin("env", t)
             env_state, obs, reward, done, info = wenv.step(
                 st.env_state, actions, generator)
+            spans.end("env", t)
             done_f = done.float()
             # fingerprints reset to uniform on episode start
             new_fp = torch.where(done_f[:, None, None] > 0, uniform_fp,
@@ -413,10 +426,11 @@ def make_a2c(env, mcfg: ModelConfig, tcfg: TrainConfig, agent: str = "ia2c",
         seqs: Dict[str, list] = {k: [] for k in keys}
         infos: Dict[str, list] = {}
         for t in range(T):
+            spans.begin("step", t)
             g = (gumbel[t].to(dev) if gumbel is not None else
                  gumbel_noise(generator, (n_global, n_agent, n_act),
                               dev)[row0:row0 + n_env])
-            st, rec = _env_policy_step(mparams, st, g, generator)
+            st, rec = _env_policy_step(mparams, st, g, generator, t)
             if torch.is_grad_enabled():     # the fused path's loss terms
                 rec["logp"], rec["ent"] = action_stats(rec["logits"],
                                                        rec["actions"])
@@ -424,6 +438,7 @@ def make_a2c(env, mcfg: ModelConfig, tcfg: TrainConfig, agent: str = "ia2c",
                 seqs[k].append(rec[k])
             for k, v in rec["info"].items():
                 infos.setdefault(k, []).append(v)
+            spans.end("step", t)
         extra = {"env/" + k: torch.mean(torch.stack(v).float())
                  for k, v in infos.items()}
         return st, {k: torch.stack(v) for k, v in seqs.items()}, extra
@@ -437,6 +452,8 @@ def make_a2c(env, mcfg: ModelConfig, tcfg: TrainConfig, agent: str = "ia2c",
         if use_kick:
             keys.append("teacher_ce")
         st, seq, extra = _rollout(mparams, ts, gumbel, keys, generator)
+        spans.end("rollout")
+        spans.begin("returns")
         with torch.no_grad():
             _, _, v_boot = vpstep(mparams, st.carry, st.obs, st.fp,
                                   st.prev_done)
@@ -464,6 +481,8 @@ def make_a2c(env, mcfg: ModelConfig, tcfg: TrainConfig, agent: str = "ia2c",
                 mparams, ts, gumbel,
                 ["obs", "fp", "prev_done", "actions", "reward", "values",
                  "done_f"], generator)
+            spans.end("rollout")
+            spans.begin("returns")
             _, _, v_boot = vpstep(mparams, st.carry, st.obs, st.fp,
                                   st.prev_done)
             returns = _returns_pipeline(seq["reward"], seq["done_f"], v_boot)
@@ -487,6 +506,8 @@ def make_a2c(env, mcfg: ModelConfig, tcfg: TrainConfig, agent: str = "ia2c",
         kickstart weight and the learning rate; the draws come from
         ``generator``. The host counters of the returned state are those of
         ``ts`` advanced by one update (the wrapper sets them)."""
+        spans.begin("update")
+        spans.begin("rollout")
         beta, kick_w, lr = sched[0], sched[1], sched[2]
         leaves = [p.detach().requires_grad_(True)
                   for p in tree_leaves(ts.params)]
@@ -497,9 +518,6 @@ def make_a2c(env, mcfg: ModelConfig, tcfg: TrainConfig, agent: str = "ia2c",
         else:
             loss, stats, st, extra = _replay_loss(ts, params, beta, gumbel,
                                                   generator)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(leaves, grads)]
         dev_metrics = {
             "loss": loss.detach(),
             "policy_loss": stats.policy.detach(),
@@ -509,14 +527,23 @@ def make_a2c(env, mcfg: ModelConfig, tcfg: TrainConfig, agent: str = "ia2c",
             "episode_len": torch.mean(st.last_len),
             **extra,
         }
+        spans.end("returns")
+        spans.begin("backward")
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, grads)]
+        spans.end("backward")
         if axis_name is not None:
             # the global batch mean: one all_reduce of the gradients and
             # the device-side metrics together
+            spans.begin("allreduce")
             names = list(dev_metrics)
             out = distributed.all_reduce_mean(
                 grads + [dev_metrics[k] for k in names])
             grads = out[:len(grads)]
             dev_metrics = dict(zip(names, out[len(grads):]))
+            spans.end("allreduce")
+        spans.begin("optimizer")
         grad_norm = global_norm(grads)
         updates, opt_state = optimizer.update(grads, ts.opt_state, lr=lr)
         new_params = tree_unflatten(
@@ -525,6 +552,7 @@ def make_a2c(env, mcfg: ModelConfig, tcfg: TrainConfig, agent: str = "ia2c",
         if consensus:
             new_params = consensus_update(
                 new_params, env.spec.neighbor_mask, tables=cons_tables)
+        spans.end("optimizer")
 
         new_ts = TrainState(
             params=new_params, opt_state=opt_state, env_state=st.env_state,
@@ -535,6 +563,7 @@ def make_a2c(env, mcfg: ModelConfig, tcfg: TrainConfig, agent: str = "ia2c",
             step=ts.step + steps_per_update, ep_ret=st.ep_ret,
             ep_len=st.ep_len, last_ep_ret=st.last_ret,
             last_ep_len=st.last_len)
+        spans.end("update")
         return new_ts, {**dev_metrics, "grad_norm": grad_norm}
 
     feed = HostScalars(3, dev)
@@ -546,7 +575,7 @@ def make_a2c(env, mcfg: ModelConfig, tcfg: TrainConfig, agent: str = "ia2c",
             new_ts, metrics = _update(ts, sched, extras[0], generator)
             return state_leaves(new_ts), metrics
 
-        graphed = GraphedStep(_flat_update, dev, n_scalars=3)
+        graphed = GraphedStep(_flat_update, dev, n_scalars=3, spans=spans)
 
     def train_step(ts: TrainState, gumbel: Optional[torch.Tensor] = None
                    ) -> Tuple[TrainState, Dict[str, Any]]:
@@ -559,24 +588,32 @@ def make_a2c(env, mcfg: ModelConfig, tcfg: TrainConfig, agent: str = "ia2c",
             raise ValueError(f"gumbel has shape {tuple(gumbel.shape)}, the "
                              f"update draws [T, B, N, A] = "
                              f"{[T, n_env, env.spec.n_agent, n_act]}")
-        beta = ent_sched(ts.step)
-        # kickstart weight anneals linearly to 0 at
-        # kickstart_ratio * total_step
-        kick_w = mcfg.kickstart_coef * min(max(
-            1.0 - ts.step / kick_horizon, 0.0), 1.0)
-        sched = (beta, kick_w, optimizer.lr_schedule(ts.opt_state.count))
-        if graphed is None:
-            new_ts, metrics = _update(ts, feed.tensor(sched), gumbel,
-                                      ts.generator)
-        else:
-            if not skeleton:
-                skeleton.append(state_skeleton(ts))
-            leaves, metrics = graphed(gumbel is not None, state_leaves(ts),
-                                      sched, [gumbel], ts.generator)
-            new_ts = state_from_leaves(
-                ts, leaves, ts.step + steps_per_update,
-                ts.opt_state.count + 1, ts.generator)
-        metrics = {**metrics, "lr": lr_env_sched(ts.step), "beta": beta}
+        with spans.host("train_step"):
+            with spans.host("schedule"):
+                beta = ent_sched(ts.step)
+                # kickstart weight anneals linearly to 0 at
+                # kickstart_ratio * total_step
+                kick_w = mcfg.kickstart_coef * min(max(
+                    1.0 - ts.step / kick_horizon, 0.0), 1.0)
+                sched = (beta, kick_w,
+                         optimizer.lr_schedule(ts.opt_state.count))
+            if graphed is None:
+                with spans.host("scalars_write"):
+                    sched_t = feed.tensor(sched)
+                with spans.host("launch"):
+                    new_ts, metrics = _update(ts, sched_t, gumbel,
+                                              ts.generator)
+            else:
+                if not skeleton:
+                    skeleton.append(state_skeleton(ts))
+                leaves, metrics = graphed(gumbel is not None,
+                                          state_leaves(ts), sched, [gumbel],
+                                          ts.generator)
+                new_ts = state_from_leaves(
+                    ts, leaves, ts.step + steps_per_update,
+                    ts.opt_state.count + 1, ts.generator)
+            metrics = {**metrics, "lr": lr_env_sched(ts.step), "beta": beta}
+        spans.commit()
         return new_ts, metrics
 
     def _episode_start(params, seed_or_generator):
@@ -684,4 +721,4 @@ def make_a2c(env, mcfg: ModelConfig, tcfg: TrainConfig, agent: str = "ia2c",
                   eval_episode=eval_episode, record_episode=record_episode,
                   spec=spec, optimizer=optimizer,
                   steps_per_update=steps_per_update, update=_update,
-                  graphed=graphed)
+                  graphed=graphed, spans=spans)

@@ -207,6 +207,13 @@ class Trainer:
         sps = (self.counter.cur_step - last_step) / max(now - last_t, 1e-9)
         row = {"step": self.counter.cur_step, "wall_s": now - t0,
                "env_steps_per_s": sps, **m}
+        # each span's mean over the window's updates (on a card; the ring
+        # holds the last 256), read once the window's means have waited
+        # for its updates
+        spans = self.fns.spans
+        if spans is not None:
+            row.update({f"span/{k}_ms": v for k, v in
+                        spans.means(len(window_metrics)).items()})
         self.train_writer.write(row)
         log.info("step %d | R_ep %.1f | loss %.3f | sps %.0f",
                  self.counter.cur_step, m.get("episode_return", 0.0),

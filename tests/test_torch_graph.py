@@ -42,6 +42,7 @@ from deeprl_network_tpu_torch.utils.graph import (
 from deeprl_network_tpu_torch.utils.rollout import (
     gumbel_noise, make_a2c, state_from_leaves, state_leaves,
 )
+from deeprl_network_tpu_torch.utils.spans import Spans
 
 needs_cuda = pytest.mark.skipif("not torch.cuda.is_available()",
                                 reason="needs a CUDA card")
@@ -252,6 +253,11 @@ class StandInGraph:
         self.replays += 1
 
 
+def _cpu_spans():
+    """The spans of a CPU update: their marks do nothing."""
+    return Spans(4, "cpu", graph=True, allreduce=False)
+
+
 def test_capture_and_replay_contract():
     """The first call of a key runs ``fn`` twice (the warm-up, then the
     capture) and no later call runs it: a replay only writes the static
@@ -266,7 +272,7 @@ def test_capture_and_replay_contract():
         new = [state[0] * scalars[0], state[1] + 1]
         return new, {"m": new[0].sum()}
 
-    step = GraphedStep(fn, "cpu", 1, graph=StandInGraph,
+    step = GraphedStep(fn, "cpu", 1, _cpu_spans(), graph=StandInGraph,
                        capture=lambda g, stream: contextlib.nullcontext())
     state = [torch.ones(3), torch.zeros(2, dtype=torch.int64)]
     gen = torch.Generator().manual_seed(0)
@@ -302,7 +308,7 @@ def test_capture_and_replay_contract():
 
 def test_graphed_step_refuses_a_state_of_other_dtypes():
     bad = GraphedStep(lambda s, c, e, g: ([s[0].double()], {}), "cpu", 1,
-                      graph=StandInGraph,
+                      _cpu_spans(), graph=StandInGraph,
                       capture=lambda g, stream: contextlib.nullcontext())
     with pytest.raises(ValueError, match="state leaf"):
         bad("a", [torch.ones(2)], [0.0], [], torch.Generator())

@@ -1,5 +1,6 @@
 """The port's batched grid ATSC engine against the JAX engine, step for
-step under auto-reset, on the same fixed numpy action sequences."""
+step under auto-reset, on the same fixed numpy action sequences, and a scan
+of T steps against the JAX scan."""
 
 import jax
 import numpy as np
@@ -182,3 +183,68 @@ def test_record_matches_jax():
             np.testing.assert_allclose(trec[k].numpy(), np.asarray(jrec[k]),
                                        rtol=1e-5, atol=1e-5, err_msg=k)
     assert float(trec["total_queue"].sum()) > 0
+
+
+# ---- a scan of the env under auto-reset, with its actions drawn or given ----
+
+def env_scan(wenv, state, obs, generator, T, actions=None):
+    """T steps of ``wenv`` (batched, with auto-reset) from ``state`` under
+    ``torch.no_grad()``; returns (state, obs, rewards [T, B, N]). Each
+    step's actions are drawn uniformly in [0, n_a_max) from ``generator``
+    on the obs' device, unless ``actions`` [T, B, N] are given."""
+    B, dev = obs.shape[0], obs.device
+    shape = (B, wenv.spec.n_agent)
+    rewards = []
+    with torch.no_grad():
+        for t in range(T):
+            a = (actions[t] if actions is not None else
+                 torch.randint(0, wenv.spec.n_a_max, shape,
+                               generator=generator, device=dev))
+            state, obs, r, _, _ = wenv.step(state, a, generator)
+            rewards.append(r)
+        return state, obs, torch.stack(rewards)
+
+
+def test_env_scan_equals_jax_scan_on_the_same_actions():
+    B, T = 2, 8
+    cfg = dict(scenario="large_grid", coop_gamma=0.9)
+    jenv = JAutoReset(jgrid.LargeGridEnv(JEnvConfig(**cfg)))
+    N = jenv.spec.n_agent
+    acts = np.random.default_rng(0).integers(
+        0, jenv.spec.n_a_max, (T, B, N)).astype(np.int32)
+
+    @jax.jit
+    def jscan(state, acts):
+        def body(s, a):
+            s2, obs, r, d, info = jax.vmap(jenv.step)(s, a)
+            return s2, (obs, r)
+        return jax.lax.scan(body, state, acts)
+
+    jstate, _ = jax.vmap(jenv.reset)(jax.random.split(jax.random.key(0), B))
+    _, (jobs, jr) = jscan(jstate, acts)
+    wenv = AutoResetEnv(grid.LargeGridEnv(EnvConfig(**cfg), device="cpu"))
+    gen = torch.Generator().manual_seed(0)
+    state, obs = wenv.reset(B, gen)
+    _, obs, rewards = env_scan(
+        wenv, state, obs, gen, T, actions=torch.from_numpy(acts).long())
+    assert rewards.shape == (T, B, N)
+    assert float(np.abs(np.asarray(jr)).sum()) > 0   # queues formed
+    np.testing.assert_allclose(rewards.numpy(), np.asarray(jr), atol=1e-5)
+    np.testing.assert_allclose(obs.numpy(), np.asarray(jobs)[-1], atol=1e-5)
+
+
+def test_env_scan_draws_its_actions_from_the_generator():
+    B, T = 3, 4
+    wenv = AutoResetEnv(grid.LargeGridEnv(
+        EnvConfig(scenario="large_grid", coop_gamma=0.9, peak_flow1=3000.0),
+        device="cpu"))
+    outs = []
+    for _ in range(2):
+        gen = torch.Generator().manual_seed(5)
+        state, obs = wenv.reset(B, gen)
+        outs.append(env_scan(wenv, state, obs, gen, T))
+    (s1, o1, r1), (s2, o2, r2) = outs
+    assert torch.equal(r1, r2) and torch.equal(o1, o2)
+    assert torch.equal(s1.prev_phase, s2.prev_phase)
+    assert int(s1.prev_phase.max()) < wenv.spec.n_a_max
+    assert len(torch.unique(s1.prev_phase)) > 1
