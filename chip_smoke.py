@@ -34,6 +34,15 @@ Phases (any failure raises, exits non-zero and prints no result line):
      10x10 grid at B=128 from graph replays (warm and cold), the host's time
      a call and the twin's, and the bound, each with its launch shape,
      registers a thread and blocks an SM;
+ 4b. comm embed: the NeurComm embedding over packed neighbour lists
+     (``ops/csrc/comm_embed.cu``) against its plain twin, forward and
+     backward, the backward bitwise equal across two calls, launch counts
+     asserted: the flagship (B=768, bf16, ``tc``), Monaco-28 at B=768, a
+     ragged B=100, B=1 and widths 8 in f32 (``general``) and the flagship in
+     f32; times at the flagship, Monaco-28 and B=1 (warm, cold, the host's
+     call, the twin, the PyTorch ops it replaced, the bound and its share);
+     from here on every phase that runs MA2C_NC over packed lists asserts
+     its launches beside the cell's: one forward and one backward each;
   5. reference: a small f32 train step on the card against the same step on
      the CPU (plain twins, held against the JAX package by the CPU tests),
      and the same at num_fc=64, num_lstm=256 (a cell wider than 256);
@@ -662,6 +671,186 @@ def check_env_kernel(card):
     return entry
 
 
+EMBED_SOURCE = "deeprl_network_tpu_torch/ops/csrc/comm_embed.cu"
+EMBED_REPLACES = ("none: XLA fuses deeprl_network_tpu/models/policies.py "
+                  "_embed's einsums over the gathered neighbours")
+# (name, network, B, dtype, n_fc = n_lstm): the flagship and the other paths
+# that run MA2C_NC over packed neighbour lists
+EMBED_CASES = (("flagship", "grid25", 768, "bfloat16", 64),
+               ("monaco_768", "monaco28", 768, "bfloat16", 64),
+               ("ragged", "grid25", 100, "bfloat16", 64),
+               ("eval_b1", "grid25", 1, "float32", 64),
+               ("graft_w8", "grid25", 1, "float32", 8),
+               ("flagship_f32", "grid25", 768, "float32", 64))
+EMBED_TIMED = ("flagship", "monaco_768", "eval_b1")
+
+
+def embed_args(network, B, dtype_name, width, seed=0):
+    """(spec, forward args, backward args) of the comm embedding on the
+    card: the network's packed MA2C_NC params at the init's scale, numpy-
+    seeded inputs, a third of the rows done; the backward's e is the twin's
+    and its cotangent a normal draw."""
+    import numpy as np
+    import torch
+    from deeprl_network_tpu_torch.config import EnvConfig, ModelConfig
+    from deeprl_network_tpu_torch.envs.grid import LargeGridEnv
+    from deeprl_network_tpu_torch.envs.monaco import RealNetEnv
+    from deeprl_network_tpu_torch.models.policies import (
+        init_policy_params, mask_comm_params, policy_consts,
+    )
+    from deeprl_network_tpu_torch.ops import comm_embed as ce
+    from deeprl_network_tpu_torch.utils.rollout import make_policy_spec
+    env = (LargeGridEnv(EnvConfig(scenario="large_grid"), device="cpu")
+           if network == "grid25" else RealNetEnv(EnvConfig(), device="cpu"))
+    spec = make_policy_spec(env.spec, ModelConfig(
+        num_fc=width, num_lstm=width, sparse_comm=True), "ma2c_nc")
+    dt = getattr(torch, dtype_name)
+    p = mask_comm_params(spec, init_policy_params(
+        torch.Generator().manual_seed(seed), spec))
+    consts = policy_consts(spec, "cuda")
+    rng = np.random.default_rng(seed)
+    n = spec.n_agent
+    t = lambda *shape, scale=1.0: torch.tensor(
+        (rng.standard_normal(shape) * scale).astype(np.float32),
+        device="cuda").to(dt)
+    fp = torch.softmax(t(B, n, spec.n_a_max).float(), -1).to(dt)
+    done = torch.tensor((rng.random(B) < 0.3).astype(np.float32),
+                        device="cuda").to(dt)
+    w = [x.to("cuda", dt) for x in (p.w_obs.w, p.w_obs.b, p.w_fp, p.w_msg)]
+    fwd = (t(B, n, spec.n_s_max), fp, t(B, n, spec.n_lstm, scale=0.5), done,
+           *w, consts.nbr, consts.rev)
+    e = ce.comm_embed_fwd_ref(*fwd[:9])
+    bwd = (*fwd[:4], w[3], consts.nbr, consts.rev, e,
+           t(B, n, spec.n_fc, scale=0.1))
+    return spec, fwd, bwd
+
+
+def embed_bytes_flops(spec, B, dtype):
+    """Bytes each comm-embedding kernel must move (inputs read once, outputs
+    written once) and its products' operations. The products read the
+    weights of the valid slots alone; the backward writes the gradients of
+    every slot (an empty slot's as zeros)."""
+    import torch
+    es = torch.tensor([], dtype=dtype).element_size()
+    N, S, A, F, H = (spec.n_agent, spec.n_s_max, spec.n_a_max, spec.n_fc,
+                     spec.n_lstm)
+    _, valid = spec.neighbor_lists()
+    K, edges = valid.shape[1], float(valid.sum())
+    terms = N * (S + 1) + edges * (A + H)
+    grads = N * (S + 1 + K * A + K * H) * F * es
+    inputs = (B * N * (S + A + H) + B) * es
+    act_f = B * N * F * es
+    fwd = (inputs + terms * F * es + act_f, 2 * B * F * terms)
+    # obs, fp, h, done, the valid W_msg, e, de in; dh and the weight
+    # gradients out
+    bwd = (inputs + edges * H * F * es + 2 * act_f + B * N * H * es + grads,
+           2 * B * F * terms + 2 * B * edges * H * F)
+    return fwd, bwd
+
+
+def check_comm_embed(card):
+    """The comm embedding's kernels against their plain twins on the card
+    at every ``EMBED_CASES`` case, forward and backward, the backward
+    bitwise equal across two calls and the launch counts asserted; at
+    ``EMBED_TIMED`` their times from graph replays (warm and cold), the
+    host's time a call, the twin's, the PyTorch ops they replace (the
+    gather, einsums, adds and relu, forward and with their backward), and
+    the bound. Returns the kernels line's entries."""
+    import torch
+    from deeprl_network_tpu_torch.ops import comm_embed as ce
+    t_phase = time.perf_counter()
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    entries = {}
+    for name, network, B, dt_name, width in EMBED_CASES:
+        spec, fwd_args, bwd_args = embed_args(network, B, dt_name, width)
+        dt = getattr(torch, dt_name)
+        variant = ce.kernel_variant(
+            dt, spec.n_s_max, spec.n_a_max, fwd_args[8].shape[1], width,
+            width, fwd_args[9].shape[1])
+        before = dict(ce.LAUNCHES)
+        e = ce.comm_embed_fwd(*fwd_args)
+        got_b = ce.comm_embed_bwd(*bwd_args)
+        again = ce.comm_embed_bwd(*bwd_args)
+        torch.cuda.synchronize()
+        err_f = max_err([e], [ce.comm_embed_fwd_ref(*fwd_args[:9])],
+                        TOL[(dt_name, "fwd")], "e")
+        err_b = max_err(got_b, ce.comm_embed_bwd_ref(*bwd_args),
+                        TOL[(dt_name, "bwd")], "dh,dw_obs,db_obs,dw_fp,dw_msg")
+        if not all(torch.equal(a, b) for a, b in zip(got_b, again)):
+            raise AssertionError(f"comm embed {name}: the backward is not "
+                                 "deterministic")
+        moved = {k: v - before[k] for k, v in ce.LAUNCHES.items()
+                 if v != before[k]}
+        if moved != {"comm_embed_fwd": 1, f"comm_embed_fwd_{variant}": 1,
+                     "comm_embed_bwd": 2, f"comm_embed_bwd_{variant}": 2}:
+            raise AssertionError(f"comm embed {name}: launch counts moved "
+                                 f"by {moved}, expected {variant}")
+        row = {"shape": name, "network": network, "B": B, "dtype": dt_name,
+               "width": width, "variant": variant, "fwd_max_abs_err": err_f,
+               "bwd_max_abs_err": err_b}
+        if name in EMBED_TIMED:
+            row.update(embed_times(spec, fwd_args, bwd_args, flush))
+            (fb, ff), (bb, bf) = embed_bytes_flops(spec, B, dt)
+            row["fwd_bound_ms"], row["fwd_bound_by"] = bound(fb, ff, dt_name)
+            row["bwd_bound_ms"], row["bwd_bound_by"] = bound(bb, bf, dt_name)
+            row.update(fwd_bytes=fb, fwd_flops=ff, bwd_bytes=bb,
+                       bwd_flops=bf, card=card)
+            for d in ("fwd", "bwd"):
+                row[f"{d}_share"] = row[f"{d}_bound_ms"] / row[f"{d}_ms"]
+        log("comm_embed_check " + json.dumps(row))
+        if name in ("flagship", "eval_b1"):
+            suffix = "" if name == "flagship" else "_general"
+            for d, err in (("fwd", err_f), ("bwd", err_b)):
+                entries[f"comm_embed_{d}{suffix}"] = dict(
+                    max_abs_err=err, ms=row[f"{d}_ms"],
+                    plain_ms=row[f"{d}_plain_ms"],
+                    bound_ms=row[f"{d}_bound_ms"],
+                    bound_by=row[f"{d}_bound_by"],
+                    library_ms=None, ops_ms=row[f"{d}_ops_ms"])
+    log(f"comm embed: phase {time.perf_counter() - t_phase:.1f} s")
+    return entries
+
+
+def embed_times(spec, fwd_args, bwd_args, flush):
+    """Times of the comm embedding at one case: the kernels (warm, cold,
+    the host's call), the twins, and the PyTorch ops that ``_embed`` ran
+    before them (``ops_ms``: the forward alone; the backward's entry: the
+    forward with its autograd backward, less the forward)."""
+    import torch
+    from deeprl_network_tpu_torch.ops import comm_embed as ce
+    obs, fp, h, done, w_obs, b_obs, w_fp, w_msg, nbr, rev = fwd_args
+    de = bwd_args[-1]
+    idx = nbr.clamp(min=0).long()
+    leaves = [x.clone().requires_grad_() for x in (h, w_obs, b_obs, w_fp,
+                                                     w_msg)]
+
+    def ops_fwd():
+        hh, wo, bo, wf, wm = leaves
+        h_prev = hh * (1.0 - done)[:, None, None]
+        x = torch.einsum("bns,nsf->bnf", obs, wo) + bo
+        x = x + torch.einsum("bnkx,nkxf->bnf", fp[:, idx], wf)
+        x = x + torch.einsum("bnkx,nkxf->bnf", h_prev[:, idx], wm)
+        return torch.relu(x)
+
+    def ops_fwd_bwd():
+        return torch.autograd.grad(ops_fwd(), leaves, de)
+
+    fwd = lambda: ce.comm_embed_fwd(*fwd_args)
+    bwd = lambda: ce.comm_embed_bwd(*bwd_args)
+    out = dict(fwd_ms=graph_ms(fwd), fwd_cold_ms=graph_ms(fwd, flush=flush),
+               fwd_call_ms=host_call_ms(fwd),
+               fwd_plain_ms=graph_ms(lambda: ce.comm_embed_fwd_ref(
+                   *fwd_args[:9]), n=5),
+               bwd_ms=graph_ms(bwd), bwd_cold_ms=graph_ms(bwd, flush=flush),
+               bwd_call_ms=host_call_ms(bwd),
+               bwd_plain_ms=graph_ms(lambda: ce.comm_embed_bwd_ref(
+                   *bwd_args), n=5))
+    with torch.no_grad():
+        out["fwd_ops_ms"] = graph_ms(ops_fwd, n=5)
+    out["bwd_ops_ms"] = graph_ms(ops_fwd_bwd, n=5) - out["fwd_ops_ms"]
+    return out
+
+
 def make_flagship(device, env_kw=None, agent="ma2c_nc", jit=True,
                   **overrides):
     """The flagship configuration through make_a2c for ``agent``;
@@ -703,28 +892,39 @@ def make_cacc(path, device, env_kw=None, **overrides):
     return make_from_ini(path, device, env_kw, **overrides)[1]
 
 
-def zero_counts():
+def wrapper_counts():
+    """Every wrapper's launch counts: the LSTM cell, the env step and the
+    comm embedding."""
+    from deeprl_network_tpu_torch.ops import comm_embed as ce
     from deeprl_network_tpu_torch.ops import lstm_cell as lc
     from deeprl_network_tpu_torch.ops import network_env as ne
-    for counts in (lc.LAUNCHES, ne.LAUNCHES):
+    return (lc.LAUNCHES, ne.LAUNCHES, ce.LAUNCHES)
+
+
+def zero_counts():
+    for counts in wrapper_counts():
         for k in counts:
             counts[k] = 0
 
 
-def expect_counts(what, fwd, bwd, variant, env, got=None):
+def expect_counts(what, fwd, bwd, variant, env, got=None, embed=False):
     """Raise unless ``got`` holds ``fwd`` forward and ``bwd`` backward cell
-    launches, all of ``variant``, and ``env`` env-step launches; returns
-    the counts. ``got`` defaults to the wrappers' counts since
+    launches, all of ``variant``, and ``env`` env-step launches; with
+    ``embed`` (MA2C_NC over packed neighbour lists) as many comm-embedding
+    launches of the same variant as cell launches, else none; returns the
+    counts. ``got`` defaults to the wrappers' counts since
     ``zero_counts()``: launches issued from Python or captured into a CUDA
     graph, whose replays they do not see; ``on_card`` gives what ran."""
-    from deeprl_network_tpu_torch.ops import lstm_cell as lc
-    from deeprl_network_tpu_torch.ops import network_env as ne
-    want = {k: 0 for k in {**lc.LAUNCHES, **ne.LAUNCHES}}
+    want = {k: 0 for c in wrapper_counts() for k in c}
     want.update({"lstm_cell_fwd": fwd, f"lstm_cell_fwd_{variant}": fwd,
                  "lstm_cell_bwd": bwd, f"lstm_cell_bwd_{variant}": bwd,
                  "network_env_step": env})
+    if embed:
+        want.update({"comm_embed_fwd": fwd, f"comm_embed_fwd_{variant}": fwd,
+                     "comm_embed_bwd": bwd,
+                     f"comm_embed_bwd_{variant}": bwd})
     if got is None:
-        got = {**lc.LAUNCHES, **ne.LAUNCHES}
+        got = {k: v for c in wrapper_counts() for k, v in c.items()}
     if got != want:
         raise AssertionError(f"{what}: kernel launches {got}, expected "
                              f"{want}")
@@ -737,7 +937,11 @@ KERNEL_OF = {"lstm_cell_fwd_tc": "lstm_tc_fwd_kernel",
              "lstm_cell_bwd_tc": "lstm_tc_bwd_act_kernel",
              "lstm_cell_fwd_general": "lstm_fwd_kernel",
              "lstm_cell_bwd_general": "lstm_bwd_act_kernel",
-             "network_env_step": "network_env_kernel"}
+             "network_env_step": "network_env_kernel",
+             "comm_embed_fwd_tc": "comm_embed_tc_fwd_kernel",
+             "comm_embed_bwd_tc": "comm_embed_tc_bwd_kernel",
+             "comm_embed_fwd_general": "comm_embed_fwd_kernel",
+             "comm_embed_bwd_general": "comm_embed_bwd_kernel"}
 
 
 def kernel_counts(by_name):
@@ -746,9 +950,10 @@ def kernel_counts(by_name):
     for key, kernel in KERNEL_OF.items():
         pat = re.compile(rf"(?<!\w){kernel}(?!\w)")
         got[key] = sum(n for name, n in by_name.items() if pat.search(name))
-    for d in ("fwd", "bwd"):
-        got[f"lstm_cell_{d}"] = (got[f"lstm_cell_{d}_tc"]
-                                 + got[f"lstm_cell_{d}_general"])
+    for base in ("lstm_cell", "comm_embed"):
+        for d in ("fwd", "bwd"):
+            got[f"{base}_{d}"] = (got[f"{base}_{d}_tc"]
+                                  + got[f"{base}_{d}_general"])
     return got
 
 
@@ -812,7 +1017,8 @@ def check_wide_reference():
     check_reference("reference wide",
                     lambda device: small_grid(device, num_fc=64,
                                               num_lstm=256), 5)
-    expect_counts("reference wide", 2 * 17, 2 * 8, "general", 2 * 8)
+    expect_counts("reference wide", 2 * 17, 2 * 8, "general", 2 * 8,
+                  embed=True)
 
 
 def check_finite_and_moved(what, m, params, p0):
@@ -871,14 +1077,16 @@ def small_grid(device, **overrides):
 
 
 def timed_steps(what, fns, ts, n_timed, fwd_per_step, bwd_per_step, variant,
-                env_per_step):
+                env_per_step, embed=False):
     """A warm-up ``train_step`` and ``n_timed`` timed ones from ``ts`` (the
     first captures the update's CUDA graph, the others replay it) under
     ``on_card``, with the counts set to 0 before and asserted after
     (``env_per_step`` env-step launches an update: T on the ATSC envs): the
     wrappers count two updates' worth (the capture's warm-up and the
     capture), and the card runs one update's worth more than the calls (the
-    warm-up). Checks that the result is finite, the masters f32 and the
+    warm-up; ``embed``: the comm embedding's launches beside the cell's, as
+    ``expect_counts`` takes them). Checks that the result is finite, the
+    masters f32 and the
     params changed. Returns (state, last metrics, {"issued": the wrappers'
     counts, "ran": the card's, "runs": the updates the card ran}, per-step
     seconds, under the kernel trace)."""
@@ -902,10 +1110,10 @@ def timed_steps(what, fns, ts, n_timed, fwd_per_step, bwd_per_step, variant,
     issued, runs = (2, n_steps + 1) if fns.graphed else (n_steps, n_steps)
     counts = {"issued": expect_counts(
         what, fwd_per_step * issued, bwd_per_step * issued, variant,
-        env_per_step * issued),
+        env_per_step * issued, embed=embed),
         "ran": expect_counts(
             f"{what} on the card", fwd_per_step * runs, bwd_per_step * runs,
-            variant, env_per_step * runs, got=ran),
+            variant, env_per_step * runs, got=ran, embed=embed),
         "runs": runs}
     check_finite_and_moved(what, m, ts.params, p0)
     return ts, m, counts, step_times
@@ -925,10 +1133,11 @@ def run_main_path(card: str, n_timed: int = 3):
     ts = fns.init_state(0)
     torch.cuda.reset_peak_memory_stats()
     # every launch of the flagship step takes the tensor-core variant:
-    # rollout, bootstrap and the remat recompute forward, T backward; the
-    # env step is one launch a control step
+    # rollout, bootstrap and the remat recompute forward, T backward, the
+    # cell's and the comm embedding's alike; the env step is one launch a
+    # control step
     ts, m, counts, step_times = timed_steps(
-        "main path", fns, ts, n_timed, 2 * T + 1, T, "tc", T)
+        "main path", fns, ts, n_timed, 2 * T + 1, T, "tc", T, embed=True)
     dt = sum(step_times)
     sps = n_timed * T * B / dt
     log("main path: " + json.dumps({
@@ -965,8 +1174,6 @@ def graph_against_eager(what, make, n=3):
     warm-up and ``n`` replays). Returns ({"issued": the graph's wrapper
     counts, "ran": its counts on the card}, the graph's capture times)."""
     import torch
-    from deeprl_network_tpu_torch.ops import lstm_cell as lc
-    from deeprl_network_tpu_torch.ops import network_env as ne
     from deeprl_network_tpu_torch.utils.rollout import state_leaves
     runs, counts = {}, {}
     ts0 = None
@@ -983,7 +1190,8 @@ def graph_against_eager(what, make, n=3):
             for _ in range(n):
                 ts, m = fns.train_step(ts)
                 runs[jit].append((ts, m))
-        counts[jit] = {"issued": {**lc.LAUNCHES, **ne.LAUNCHES},
+        counts[jit] = {"issued": {k: v for c in wrapper_counts()
+                                  for k, v in c.items()},
                        "ran": dict(ran)}
         if jit:
             times = next(iter(fns.graphed.graphs.values())).times
@@ -1263,7 +1471,8 @@ def run_bench(card: str):
     # each 2T+1 forward and T backward tensor-core launches and T env
     # steps (the window runs untraced, as bench.py does: the main path and
     # the families count what replays run)
-    launches = expect_counts("bench", 2 * 241, 2 * 120, "tc", 2 * 120)
+    launches = expect_counts("bench", 2 * 241, 2 * 120, "tc", 2 * 120,
+                             embed=True)
     if not (r.env_steps_per_s > baseline and math.isfinite(r.loss)):
         raise AssertionError(f"bench: rate {r.env_steps_per_s} against the "
                              f"baseline's {baseline}, loss {r.loss}")
@@ -1300,7 +1509,8 @@ def run_families(card: str, profile: bool, n_timed: int = 2):
         ts = fns.init_state(0)
         spread0 = agent_spread(ts.params)
         ts, m, counts, step_times = timed_steps(
-            what, fns, ts, n_timed, 2 * T + 1, T, "tc", T)
+            what, fns, ts, n_timed, 2 * T + 1, T, "tc", T,
+            embed=agent == "ma2c_nc")
         line = {"agent": agent, "loss": float(m["loss"]),
                 "grad_norm": float(m["grad_norm"]),
                 "env_steps_per_s": n_timed * T * B / sum(step_times),
@@ -1340,7 +1550,7 @@ def check_replay():
     T = 8
     g = torch.tensor(np.random.default_rng(2).gumbel(
         size=(T, 4, 25, 5)).astype(np.float32))
-    out = {}
+    out, launches = {}, {}
     # fused: T rollout + 1 bootstrap + T recomputed forwards, T backwards;
     # replay: T rollout + 1 bootstrap, then T replayed + T recomputed
     for fused, n_fwd in ((True, 2 * T + 1), (False, 3 * T + 1)):
@@ -1349,8 +1559,9 @@ def check_replay():
         zero_counts()
         ts, m = fns.train_step(ts, gumbel=g)
         torch.cuda.synchronize()
-        expect_counts(f"replay (fused_grad={fused})", 2 * n_fwd, 2 * T,
-                      "general", 2 * T)
+        launches[f"replay fused_grad={fused}"] = expect_counts(
+            f"replay (fused_grad={fused})", 2 * n_fwd, 2 * T, "general", 2 * T,
+            embed=True)
         out[fused] = (ts, m)
     (ts_f, m_f), (ts_r, m_r) = out[True], out[False]
     for k in ("loss", "grad_norm", "value_loss", "entropy", "step_reward"):
@@ -1366,6 +1577,7 @@ def check_replay():
         f"param diff {worst:.2e}); launches per step {3 * T + 1} forward + "
         f"{T} backward (replay) vs {2 * T + 1} + {T} (fused), general "
         f"variant, T={T}")
+    return launches
 
 
 def run_cacc(card: str, n_timed: int = 2):
@@ -1405,14 +1617,15 @@ def run_cacc(card: str, n_timed: int = 2):
 
 
 def check_eval_record(what, gpu_fns, cpu_fns, params, horizon, episode,
-                      card, env_kernel):
+                      card, env_kernel, embed=False):
     """``eval_episode`` and ``record_episode`` on the card against the same
     calls on the CPU port with the same params and noise over ``horizon``
     steps: action sequences equal, everything else within 1e-4 relative;
     the cell's launches counted (one forward per step, none for the
     controller), and with ``env_kernel`` (the ATSC envs) one env-step
-    launch a step; then one whole sampled episode (``episode`` steps, the
-    env's default horizon) on the card."""
+    launch a step, with ``embed`` one comm-embedding launch a policy step;
+    then one whole sampled episode (``episode`` steps, the env's default
+    horizon) on the card."""
     import numpy as np
     import torch
     from deeprl_network_tpu_torch.models.policies import tree_map
@@ -1435,7 +1648,8 @@ def check_eval_record(what, gpu_fns, cpu_fns, params, horizon, episode,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         expect_counts(f"{what} {name}", horizon if uses_policy else 0, 0,
-                      "general", horizon if env_kernel else 0)
+                      "general", horizon if env_kernel else 0,
+                      embed=embed and uses_policy)
         want = getattr(cpu_fns, fn)(cpu_params if uses_policy else None, 0,
                                     horizon, **kw)
         if got.keys() != want.keys():
@@ -1465,14 +1679,15 @@ def check_eval_record(what, gpu_fns, cpu_fns, params, horizon, episode,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     n = episode
-    expect_counts(f"{what} whole episode", n, 0, "general",
-                  n if env_kernel else 0)
+    counts = expect_counts(f"{what} whole episode", n, 0, "general",
+                           n if env_kernel else 0, embed=embed)
     if not torch.isfinite(out["episode_return"]):
         raise AssertionError(f"{what}: whole episode failed")
     log(f"{what} whole sampled episode: {n} steps, executed "
         f"{float(out['episode_len']):.0f}, return "
         f"{float(out['episode_return']):.4f}, wall {wall:.3f} s "
         f"({wall / n * 1e3:.3f} ms a step) on {card}")
+    return counts
 
 
 def run_monaco(card: str):
@@ -1492,6 +1707,7 @@ def run_monaco(card: str):
                                  sparse_comm=True, remat=True), 2, 2 * T + 1,
              "tc"))
     for what, overrides, n_timed, fwd, variant in runs:
+        embed = bool(overrides.get("sparse_comm"))
         env, fns = make_from_ini(MONACO_INI, "cuda", **overrides)
         B = overrides.get("num_envs", 32)
         spec, topo = fns.spec, env.topo
@@ -1511,7 +1727,8 @@ def run_monaco(card: str):
             return step(state, action, *rest)
         env.step_autoreset = checked_step
         ts, m, counts, step_times = timed_steps(
-            what, fns, fns.init_state(0), n_timed, fwd, T, variant, T)
+            what, fns, fns.init_state(0), n_timed, fwd, T, variant, T,
+            embed=embed)
         if bool(bad):
             raise AssertionError(f"{what}: a padded phase was sampled")
         out[what] = counts
@@ -2004,9 +2221,11 @@ def parallel_rate(results, T: int) -> float:
     return (len(results[0]["update_s"]) - 1) * T * B / slowest
 
 
-def check_rank_results(what, results, n_updates, fwd, bwd, variant, T, env):
+def check_rank_results(what, results, n_updates, fwd, bwd, variant, T, env,
+                       embed=False):
     """Each rank's launch counts (``fwd`` + ``bwd`` an update, all of
-    ``variant``, and ``env`` env steps) and gradient all-reduces, as the
+    ``variant``, the comm embedding's as many with ``embed``, and ``env``
+    env steps) and gradient all-reduces, as the
     wrappers count them: every update's eagerly, the graph's warm-up and
     capture (two updates' worth) under ``jit``; finite loss, global step,
     and params equal across ranks."""
@@ -2018,6 +2237,9 @@ def check_rank_results(what, results, n_updates, fwd, bwd, variant, T, env):
                 "lstm_cell_bwd": bwd * n, f"lstm_cell_bwd_{variant}": bwd * n}
         if env:
             want["network_env_step"] = env * n
+        if embed:
+            want.update({k.replace("lstm_cell", "comm_embed"): v
+                         for k, v in want.items() if "lstm_cell" in k})
         if r["launches"] != want:
             raise AssertionError(f"{what} rank {r['rank']}: kernel launches "
                                  f"{r['launches']}, expected {want}")
@@ -2066,7 +2288,7 @@ def run_other(card: str):
             # a warm-up and 2 timed updates; every launch takes the tc
             # variant: rollout, bootstrap and remat recompute, T backward
             launches[what] = check_rank_results(what, res, 3, 2 * T + 1, T,
-                                                "tc", T, T)
+                                                "tc", T, T, embed=True)
             if {r["backend"] for r in res} != {backend}:
                 raise AssertionError(f"{what}: backend {res[0]['backend']}")
             rates[what] = parallel_rate(res, T)
@@ -2213,6 +2435,7 @@ def main(argv=None) -> int:
 
     entries = check_kernels()
     env_entry = check_env_kernel(card)
+    embed_entries = check_comm_embed(card)
     if args.tune:
         tune_kernels()
     if args.kernels_only:
@@ -2228,10 +2451,11 @@ def main(argv=None) -> int:
     grid_params = ts.params
     del ts
     run_families(card, args.profile)
-    check_replay()
+    replay_launches = check_replay()
     cacc, cacc_launches = run_cacc(card)
-    check_eval_record("eval/record grid", fns, make_flagship("cpu"),
-                      grid_params, 120, 720, card, True)
+    eval_launches = check_eval_record(
+        "eval/record grid", fns, make_flagship("cpu"), grid_params, 120, 720,
+        card, True, embed=True)
     cacc_fns, cacc_ts = cacc[CACC_CONFIGS[0]]
     # initial noise off: the CPU's and the card's generators differ
     quiet = dict(init_noise_h=0.0, init_noise_v=0.0)
@@ -2321,6 +2545,34 @@ def main(argv=None) -> int:
         launches=env_paths["flagship"], device_launches=env_ran["flagship"],
         library_ms=None, launches_by_path=env_paths,
         device_launches_by_path=env_ran, **env_entry))
+    # the comm embedding: the flagship's counts and every other packed
+    # MA2C_NC path's (the general kernels: a grid eval episode at B=1 and the
+    # small f32 updates of the replay check)
+    for name, e in embed_entries.items():
+        if name.endswith("_general"):
+            general = {"eval grid episode": eval_launches, **replay_launches}
+            paths = {k: v[name] for k, v in general.items() if v[name]}
+            ran = {}
+        else:
+            b768 = monaco_launches["monaco b768"]
+            paths = {"flagship": launches["issued"][name],
+                     "bench": bench_launches[name],
+                     "graph flagship": graph_launches["issued"][name],
+                     "monaco b768": b768["issued"][name],
+                     **{k: v[name] for k, v in parallel_launches.items()
+                        if v.get(name)}}
+            ran = {"flagship": launches["ran"][name],
+                   "graph flagship": graph_launches["ran"][name],
+                   "monaco b768": b768["ran"][name]}
+        if not paths or min(paths.values()) <= 0 \
+                or min(ran.values(), default=1) <= 0:
+            raise AssertionError(f"{name} was not launched on its paths: "
+                                 f"{paths}, on the card {ran}")
+        kernels.append(dict(
+            name=name, route="cuda", source=EMBED_SOURCE,
+            replaces=EMBED_REPLACES, launches=next(iter(paths.values())),
+            device_launches=ran.get("flagship"), launches_by_path=paths,
+            device_launches_by_path=ran, **e))
     log(f"total: {time.perf_counter() - t_start:.1f} s; "
         f"throughput {sps:.1f} env-steps/s on {card}")
     print(json.dumps({"kernels": kernels}))

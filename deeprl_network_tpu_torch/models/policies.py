@@ -36,6 +36,9 @@ import torch
 from deeprl_network_tpu_torch.models.layers import (
     FCParams, LSTMParams, fc_init, lstm_init, ortho_init,
 )
+from deeprl_network_tpu_torch.ops.comm_embed import (
+    comm_embed, neighbour_tables,
+)
 from deeprl_network_tpu_torch.ops.lstm_cell import fused_agent_lstm
 
 BIG_NEG = -1e9
@@ -113,17 +116,23 @@ class PolicyConsts(NamedTuple):
     adj: torch.Tensor         # [N, N, 1, 1] f32
     logit_mask: torch.Tensor  # [N, A] f32
     deg: torch.Tensor         # [N, 1] f32 max(degree, 1), the COMMNET mean
+    nbr: torch.Tensor         # [N, K] int32 neighbour lists, -1 in empty slots
+    rev: torch.Tensor         # [N, R] int32 receiver * K + slot per sender
+                              # (ops/comm_embed.py neighbour_tables)
 
 
 def policy_consts(spec: PolicySpec, device) -> PolicyConsts:
     idx, valid = spec.neighbor_lists()
     adj = torch.as_tensor(spec.adj(), device=device)
+    nbr, rev = neighbour_tables(idx, valid)
     return PolicyConsts(
         idx=torch.as_tensor(idx.astype(np.int64), device=device),
         valid=torch.as_tensor(valid, device=device)[:, :, None, None],
         adj=adj[:, :, None, None],
         logit_mask=torch.as_tensor(spec.logit_mask(), device=device),
-        deg=torch.clamp(adj.sum(-1, keepdim=True), min=1.0))
+        deg=torch.clamp(adj.sum(-1, keepdim=True), min=1.0),
+        nbr=torch.as_tensor(nbr, device=device),
+        rev=torch.as_tensor(rev, device=device))
 
 
 class PolicyParams(NamedTuple):
@@ -265,14 +274,27 @@ def mask_comm_params(spec: PolicySpec, params: PolicyParams,
 
 
 def _embed(spec: PolicySpec, params: PolicyParams, h_prev: torch.Tensor,
-           obs: torch.Tensor, fp: torch.Tensor,
-           consts: PolicyConsts) -> torch.Tensor:
+           obs: torch.Tensor, fp: torch.Tensor, consts: PolicyConsts,
+           done: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Pre-LSTM input embedding [B, N, n_fc]: own obs through the per-agent
-    fc plus the comm type's message term. Einsum letters: b env, n receiving
-    agent, m sending agent (dense), k neighbour slot (packed), x the sender's
-    feature (obs, fingerprint, hidden state or DIAL message), d DIAL message
-    width, f embedding."""
+    fc plus the comm type's message term. With ``done`` [B] given,
+    ``h_prev`` is the unmasked carry and rows where ``done`` is set read
+    zeros of it. NEURCOMM over packed neighbour lists (``sparse_comm``,
+    no ``neighbor_obs``) is one kernel each way (``ops/comm_embed.py``, the
+    plain twin on the CPU); every other case runs the einsums below. Einsum
+    letters: b env, n receiving agent, m sending agent (dense), k neighbour
+    slot (packed), x the sender's feature (obs, fingerprint, hidden state or
+    DIAL message), d DIAL message width, f embedding."""
     sparse = spec.sparse_comm and spec.neighbor_mask is not None
+    ct = spec.comm_type
+    if sparse and ct is CommType.NEURCOMM and not spec.neighbor_obs:
+        if done is None:
+            done = h_prev.new_zeros(h_prev.shape[0])
+        return comm_embed(obs, fp, h_prev, done, params.w_obs.w,
+                          params.w_obs.b, params.w_fp, params.w_msg,
+                          consts.nbr, consts.rev)
+    if done is not None:
+        h_prev = h_prev * (1.0 - done.to(h_prev.dtype))[:, None, None]
     idx = consts.idx
 
     def edge_sum(x, w):
@@ -283,7 +305,6 @@ def _embed(spec: PolicySpec, params: PolicyParams, h_prev: torch.Tensor,
         return torch.einsum("bmx,nmxf->bnf", x, w)
 
     e = torch.einsum("bns,nsf->bnf", obs, params.w_obs.w) + params.w_obs.b
-    ct = spec.comm_type
     if spec.neighbor_obs:
         # alpha-scaled neighbour observations: data only, like fingerprints
         e = e + edge_sum(obs.detach() * spec.obs_alpha, params.w_nobs)
@@ -319,8 +340,7 @@ def policy_step_batched(spec: PolicySpec, params: PolicyParams,
     if consts is None:
         consts = policy_consts(spec, obs.device)
     done = done.to(carry.h.dtype)
-    h_prev = carry.h * (1.0 - done)[:, None, None]
-    e = _embed(spec, params, h_prev, obs, fp, consts)
+    e = _embed(spec, params, carry.h, obs, fp, consts, done)
     c2, h2 = fused_agent_lstm(
         (params.lstm.wx, params.lstm.wh, params.lstm.b),
         (carry.c, carry.h), e, done)
