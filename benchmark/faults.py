@@ -11,6 +11,13 @@ them; ``calibrate.py`` reads them on the card and the tests on the CPU.
   ended, so it flows into the next episode.
 - ``stale_obs``: the auto-reset hands back the ended episode's last
   observation in place of the fresh episode's first.
+
+Faults of one comm family's own mechanism, for that family:
+
+- ``fp_zeroed``: the policy reads zeros in place of the fingerprints (FP).
+- ``commnet_sum``: CommNet's message is the neighbours' sum in place of
+  their mean.
+- ``dial_no_bias``: DIAL's message head drops its bias b_dial.
 """
 
 from __future__ import annotations
@@ -84,5 +91,34 @@ def stale_obs():
     return _patched(wrappers.AutoResetEnv, "step", step)
 
 
+def _policy_step(change):
+    """The policy step with its params, consts and fingerprints changed by
+    ``change``."""
+    from deeprl_network_tpu_torch.utils import rollout
+    real = rollout.policy_step_batched
+
+    def step(spec, params, carry, obs, fp, done, consts):
+        params, consts, fp = change(params, consts, fp)
+        return real(spec, params, carry, obs, fp, done, consts)
+    return _patched(rollout, "policy_step_batched", step)
+
+
+def fp_zeroed():
+    return _policy_step(lambda p, c, fp: (p, c, torch.zeros_like(fp)))
+
+
+def commnet_sum():
+    return _policy_step(lambda p, c, fp: (
+        p, c._replace(deg=torch.ones_like(c.deg)), fp))
+
+
+def dial_no_bias():
+    return _policy_step(lambda p, c, fp: (
+        p._replace(w_dial=p.w_dial._replace(
+            b=torch.zeros_like(p.w_dial.b))), c, fp))
+
+
 FAULTS = {"unchanged": unchanged, "half_batch": half_batch, "token": token,
-          "carry_kept": carry_kept, "stale_obs": stale_obs}
+          "carry_kept": carry_kept, "stale_obs": stale_obs,
+          "fp_zeroed": fp_zeroed, "commnet_sum": commnet_sum,
+          "dial_no_bias": dial_no_bias}

@@ -1,8 +1,9 @@
 """The whole update's share of one card's peak: the policy's model FLOPs of
 an update (forward and backward over this process's B x T x N agent-steps,
-from the published equations: ``update_model_flops``) times the window's
-updates, over the window's seconds and the peak of the compute dtype as the
-port runs it (bf16 989 TFLOP/s; f32 67 TFLOP/s, TF32 being off)."""
+from the published equations of the cell's comm type:
+``update_model_flops``) times the window's updates, over the window's
+seconds and the peak of the compute dtype as the port runs it (bf16 989
+TFLOP/s; f32 67 TFLOP/s, TF32 being off)."""
 
 from benchmark.roofline import PEAK_FLOPS, update_model_flops
 

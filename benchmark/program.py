@@ -7,7 +7,7 @@ time and judge what these build.
 from __future__ import annotations
 
 import importlib
-from typing import Dict
+from typing import Dict, List, Optional
 
 import torch
 
@@ -55,16 +55,34 @@ def to_program(named: Dict[str, torch.Tensor]):
     """The program's parameter tree holding the named tensors."""
     from deeprl_network_tpu_torch.models.layers import FCParams, LSTMParams
     from deeprl_network_tpu_torch.models.policies import PolicyParams
+    w_dial = (FCParams(named["w_dial.w"], named["w_dial.b"])
+              if "w_dial.w" in named else None)
     return PolicyParams(
         w_obs=FCParams(named["w_obs.w"], named["w_obs.b"]),
         lstm=LSTMParams(named["lstm.wx"], named["lstm.wh"], named["lstm.b"]),
         actor=FCParams(named["actor.w"], named["actor.b"]),
         critic=FCParams(named["critic.w"], named["critic.b"]),
-        w_fp=named.get("w_fp"), w_msg=named.get("w_msg"), w_dial=None)
+        w_fp=named.get("w_fp"), w_msg=named.get("w_msg"), w_dial=w_dial)
 
 
-def named(params) -> Dict[str, torch.Tensor]:
-    """The program's parameter tree as named tensors (``PARAM_NAMES``)."""
-    from deeprl_network_tpu_torch.models.policies import tree_leaves
-    leaves = tree_leaves(params)
-    return dict(zip(PARAM_NAMES[:len(leaves)], leaves))
+def named(params, leaves: Optional[List[torch.Tensor]] = None
+          ) -> Dict[str, torch.Tensor]:
+    """The program's parameter tree as named tensors, each named by its
+    field and sub-field (``w_obs.w``, ``w_msg``, ``w_dial.b``); with
+    ``leaves`` (one tensor a leaf in the tree's leaf order, such as the
+    optimizer's state), those in the leaves' place. Raises on a leaf that
+    the reference has no name for."""
+    it = iter(leaves) if leaves is not None else None
+    out = {}
+    for field, value in zip(params._fields, params):
+        subs = (zip((f"{field}.{s}" for s in value._fields), value)
+                if isinstance(value, tuple) else [(field, value)])
+        for name, leaf in subs:
+            if leaf is None:
+                continue
+            if name not in PARAM_NAMES:
+                raise ValueError(f"the reference has no parameter {name!r}")
+            out[name] = leaf if it is None else next(it)
+    if it is not None and next(it, None) is not None:
+        raise ValueError("more leaves than the tree holds")
+    return out

@@ -1,8 +1,8 @@
 """The plain reference: env engines, the policy and the A2C update in plain
 PyTorch and NumPy, float32. It imports nothing
 of the program (``deeprl_network_tpu_torch``), of its JAX original, or of
-JAX: a configuration's file names its reference env, and the reference is
-built from that file alone.
+JAX: a configuration's file names its reference env and its ``agent``, and
+the reference is built from that file alone.
 """
 
 from __future__ import annotations
@@ -12,8 +12,9 @@ from typing import Dict, Tuple
 
 from benchmark.reference.policy import Policy
 
-# the families the reference policy computes, and whether they talk
-COMM = {"ia2c": False, "ma2c_nc": True}
+# the families the reference policy computes, and their comm types
+COMM = {"ia2c": "none", "ia2c_fp": "fp", "ma2c_nc": "neurcomm",
+        "ma2c_cnet": "commnet", "ma2c_dial": "dial"}
 
 
 def build_reference(config: Dict, device) -> Tuple[object, Policy]:
@@ -22,10 +23,10 @@ def build_reference(config: Dict, device) -> Tuple[object, Policy]:
     if not module.startswith("benchmark.reference."):
         raise ValueError(f"reference env {config['reference_env']!r} lies "
                          "outside benchmark/reference")
+    agent = config["agent"]
+    if agent not in COMM:
+        why = " (it has no consensus step)" if agent == "ia2c_cu" else ""
+        raise ValueError(f"the reference has no policy for {agent!r}{why}")
     env = getattr(importlib.import_module(module), attr)(config["env"],
                                                          device)
-    if config["agent"] not in COMM:
-        raise ValueError(f"the reference has no policy for "
-                         f"{config['agent']!r}")
-    return env, Policy(env.adj, env.action_mask, COMM[config["agent"]],
-                       device)
+    return env, Policy(env.adj, env.action_mask, COMM[agent], device)

@@ -67,17 +67,35 @@ def env_bytes_flops(B: int, L: int, M: int, P: int, D: int, W: int,
     return nbytes, flops
 
 
+def comm_flops(comm: str, deg: float, n_a: int, F: int, H: int) -> float:
+    """Model FLOPs of one agent-step's comm term (``reference/policy.py``),
+    forward, from its matrix products: FP's fingerprint blocks, NeurComm's
+    FP and message blocks over the deg neighbours, CommNet's shared map and
+    the deg H adds of its mean, DIAL's message head and its message blocks
+    (messages as wide as the embedding, F)."""
+    if comm == "none":
+        return 0.0
+    if comm == "fp":
+        return 2 * deg * n_a * F
+    if comm == "neurcomm":
+        return 2 * deg * n_a * F + 2 * deg * H * F
+    if comm == "commnet":
+        return 2 * H * F + deg * H
+    if comm == "dial":
+        return 2 * H * F + 2 * deg * F * F
+    raise ValueError(f"unknown comm type {comm!r}")
+
+
 def update_model_flops(B: int, T: int, n_s: int, n_a: int, F: int, H: int,
-                       degrees, comm: bool) -> float:
+                       degrees, comm: str) -> float:
     """Model FLOPs of one A2C update of B envs over T steps: the policy's
-    matrix products (own-obs embedding, NeurComm's fingerprint and message
-    sums over each agent's neighbours, the LSTM cell, actor and critic) for
-    every agent-step, forward and backward (twice the forward), and the
-    bootstrap forward. No recompute, no env, no elementwise work."""
+    matrix products (own-obs embedding, the comm type's term, the LSTM
+    cell, actor and critic) for every agent-step, forward and backward
+    (twice the forward), and the bootstrap forward. No recompute, no env,
+    no elementwise work."""
     per_agent = 0.0
     for deg in degrees:
         f = 2 * n_s * F + 2 * (F + H) * 4 * H + 2 * H * n_a + 2 * H
-        if comm:
-            f += 2 * deg * n_a * F + 2 * deg * H * F
+        f += comm_flops(comm, deg, n_a, F, H)
         per_agent += f
     return B * per_agent * (3 * T + 1)

@@ -1,7 +1,8 @@
-"""A dry run of each cell on the CPU at a tiny size: the traffic runner's
-set-up, window and check with the program's plain twins, and the result
-line it makes; and the reference against the port in float32, where they
-agree to rounding."""
+"""A dry run of each cell, and of the grid's files under each comm family
+that has no cell (FP, CommNet, DIAL), on the CPU at a tiny size: the
+traffic runner's set-up, window and check with the program's plain twins,
+and the result line it makes; and the reference against the port in
+float32, where they agree to rounding."""
 
 import time
 
@@ -9,10 +10,10 @@ import pytest
 import torch
 
 from benchmark import run as bench_run, spec
-from benchmark.tests.helpers import short_episodes, tiny
+from benchmark.tests.helpers import FAMILY_CASES, GRID, short_episodes, tiny
 from benchmark.traffic import train
 
-TRAIN_CELLS = ["grid25_ma2c_nc.train_b768", "cacc_catchup_ma2c_nc.train_b64"]
+TRAIN_CELLS = [GRID, "cacc_catchup_ma2c_nc.train_b64"]
 
 
 def _f32(cell):
@@ -20,7 +21,7 @@ def _f32(cell):
     return cell
 
 
-@pytest.mark.parametrize("name", TRAIN_CELLS)
+@pytest.mark.parametrize("name", TRAIN_CELLS + FAMILY_CASES)
 def test_train_cell_dry_run(name):
     cell = _f32(tiny(name, num_envs=4))
     out = spec.traffic_runner(cell.kind).run(cell, 3_000_000_017, 0.2, False,
@@ -38,7 +39,7 @@ def test_train_cell_dry_run(name):
     assert all(v["value"] > 0 for v in result["metrics"].values())
 
 
-@pytest.mark.parametrize("name", TRAIN_CELLS)
+@pytest.mark.parametrize("name", TRAIN_CELLS + FAMILY_CASES)
 def test_check_passes_an_episode_end(name):
     """Episodes of 12 steps, three updates of 8: the auto-reset, the carry
     masked and the fingerprints reset at the episode's end agree between
@@ -49,10 +50,11 @@ def test_check_passes_an_episode_end(name):
     assert max(out["numbers"].values()) < 1e-5, out["numbers"]
 
 
-def test_bf16_grid_reads_its_rounding():
+@pytest.mark.parametrize("name", [GRID] + FAMILY_CASES)
+def test_bf16_grid_reads_its_rounding(name):
     """The grid as configured (bf16 compute on the twins) parts from the
     float32 reference by bf16's rounding, far above float32's."""
-    cell = tiny("grid25_ma2c_nc.train_b768", num_envs=4)
+    cell = tiny(name, num_envs=4)
     out = spec.traffic_runner(cell.kind).run(cell, 7, 0.1, False,
                                              time.perf_counter(), "cpu")
     assert 1e-5 < max(out["numbers"].values()) < 0.1, out["numbers"]

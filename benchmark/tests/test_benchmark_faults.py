@@ -2,15 +2,16 @@
 for a card skipped, on the CPU at a tiny size), finds ``correct`` false:
 a step that hands its state back unchanged, half of the batch left out of
 the loss, an action altered where it is sampled, the carry or the
-observation left unreset where an episode ends. The cells' own limits
-judge."""
+observation left unreset where an episode ends; and, under each comm
+family that has no cell, a fault of its own mechanism. The cells' own
+limits judge."""
 
 import time
 
 import pytest
 
 from benchmark import faults, judge, spec
-from benchmark.tests.helpers import short_episodes, tiny
+from benchmark.tests.helpers import GRID, short_episodes, tiny
 
 TRAIN_CELLS = ["grid25_ma2c_nc.train_b768", "cacc_catchup_ma2c_nc.train_b64"]
 
@@ -41,3 +42,14 @@ def test_episode_end_faults_fail(name, fault):
     assert not judge.verdict(out["numbers"], cell.limits), out["numbers"]
 
 
+@pytest.mark.parametrize("name,fault", [
+    (f"{GRID}:ia2c_fp", "fp_zeroed"), (f"{GRID}:ma2c_cnet", "commnet_sum"),
+    (f"{GRID}:ma2c_dial", "dial_no_bias")])
+def test_comm_family_faults_fail(name, fault):
+    """A fault of each comm family's own mechanism fails the check: the
+    comparison sees the fingerprints, CommNet's mean, DIAL's message
+    bias."""
+    cell = tiny(name, num_envs=16)
+    cell.config["assumed"]["compute_dtype"] = "float32"
+    out = _run(cell, fault)
+    assert not judge.verdict(out["numbers"], cell.limits), out["numbers"]

@@ -30,7 +30,7 @@ def _trace():
 
 
 SHAPES = {"B": 768, "T": 120, "N": 25, "n_s": 12, "n_a": 5,
-          "F": 64, "H": 64, "comm": True, "degrees": [3.2] * 25,
+          "F": 64, "H": 64, "comm": "neurcomm", "degrees": [3.2] * 25,
           "dtype": "bfloat16",
           "env": {"L": 300, "M": 25, "P": 5, "D": 10, "W": 12,
                   "route_nnz": 720, "substeps": 5, "with_q0": False}}
@@ -55,7 +55,7 @@ def test_window_readers():
     assert read("train_step_host_ms.train", OBS) == pytest.approx(2.0)
     assert read("update_device_ms.train", OBS) == pytest.approx(70.0)
     flops = roofline.update_model_flops(768, 120, 12, 5, 64, 64,
-                                        [3.2] * 25, True)
+                                        [3.2] * 25, "neurcomm")
     assert read("step_mfu.train", OBS) == pytest.approx(
         100 * flops * 10 / 0.7 / 989e12)
 

@@ -89,7 +89,8 @@ class Run:
             self.ts, m = self.fns.train_step(self.ts)
             self.losses.append(float(m["loss"]))
             if i == 0:
-                self.ms1 = _cpu(dict(zip(self.p0, self.ts.opt_state.ms)))
+                self.ms1 = _cpu(program.named(self.ts.params,
+                                              self.ts.opt_state.ms))
         self.p_last = _cpu(program.named(self.ts.params))
         _sync(self.device)
 
