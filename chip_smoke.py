@@ -39,10 +39,13 @@ Phases (any failure raises, exits non-zero and prints no result line):
      backward, the backward bitwise equal across two calls, launch counts
      asserted: the flagship (B=768, bf16, ``tc``), Monaco-28 at B=768, a
      ragged B=100, B=1 and widths 8 in f32 (``general``) and the flagship in
-     f32; times at the flagship, Monaco-28 and B=1 (warm, cold, the host's
-     call, the twin, the PyTorch ops it replaced, the bound and its share);
-     from here on every phase that runs MA2C_NC over packed lists asserts
-     its launches beside the cell's: one forward and one backward each;
+     f32; DIAL's call (no fingerprint term, its messages unmasked) at the
+     flagship and at B=1 in f32, under DIAL's launch keys; times at the
+     flagship, Monaco-28, B=1 and DIAL's two (warm, cold, the host's call,
+     the twin, the PyTorch ops it replaced, the bound and its share); from
+     here on every phase that runs MA2C_NC or MA2C_DIAL over packed lists
+     asserts its launches beside the cell's: one forward and one backward
+     each;
   5. reference: a small f32 train step on the card against the same step on
      the CPU (plain twins, held against the JAX package by the CPU tests),
      and the same at num_fc=64, num_lstm=256 (a cell wider than 256);
@@ -674,22 +677,28 @@ def check_env_kernel(card):
 EMBED_SOURCE = "deeprl_network_tpu_torch/ops/csrc/comm_embed.cu"
 EMBED_REPLACES = ("none: XLA fuses deeprl_network_tpu/models/policies.py "
                   "_embed's einsums over the gathered neighbours")
-# (name, network, B, dtype, n_fc = n_lstm): the flagship and the other paths
-# that run MA2C_NC over packed neighbour lists
-EMBED_CASES = (("flagship", "grid25", 768, "bfloat16", 64),
-               ("monaco_768", "monaco28", 768, "bfloat16", 64),
-               ("ragged", "grid25", 100, "bfloat16", 64),
-               ("eval_b1", "grid25", 1, "float32", 64),
-               ("graft_w8", "grid25", 1, "float32", 8),
-               ("flagship_f32", "grid25", 768, "float32", 64))
-EMBED_TIMED = ("flagship", "monaco_768", "eval_b1")
+# (name, network, B, dtype, n_fc = n_lstm = n_msg, agent): the flagship and
+# the other paths that run MA2C_NC over packed neighbour lists, and DIAL's
+# call at the flagship and at B=1
+EMBED_CASES = (("flagship", "grid25", 768, "bfloat16", 64, "ma2c_nc"),
+               ("monaco_768", "monaco28", 768, "bfloat16", 64, "ma2c_nc"),
+               ("ragged", "grid25", 100, "bfloat16", 64, "ma2c_nc"),
+               ("eval_b1", "grid25", 1, "float32", 64, "ma2c_nc"),
+               ("graft_w8", "grid25", 1, "float32", 8, "ma2c_nc"),
+               ("flagship_f32", "grid25", 768, "float32", 64, "ma2c_nc"),
+               ("dial_flagship", "grid25", 768, "bfloat16", 64, "ma2c_dial"),
+               ("dial_eval_b1", "grid25", 1, "float32", 64, "ma2c_dial"))
+EMBED_TIMED = ("flagship", "monaco_768", "eval_b1", "dial_flagship",
+               "dial_eval_b1")
 
 
-def embed_args(network, B, dtype_name, width, seed=0):
+def embed_args(network, B, dtype_name, width, seed=0, agent="ma2c_nc"):
     """(spec, forward args, backward args) of the comm embedding on the
-    card: the network's packed MA2C_NC params at the init's scale, numpy-
-    seeded inputs, a third of the rows done; the backward's e is the twin's
-    and its cotangent a normal draw."""
+    card: the network's packed params of ``agent`` at the init's scale,
+    numpy-seeded inputs, a third of the rows done; the backward's e is the
+    twin's and its cotangent a normal draw. DIAL's call takes its messages
+    (the masked carry through the message head) and no fingerprints, done
+    or W_fp."""
     import numpy as np
     import torch
     from deeprl_network_tpu_torch.config import EnvConfig, ModelConfig
@@ -703,7 +712,7 @@ def embed_args(network, B, dtype_name, width, seed=0):
     env = (LargeGridEnv(EnvConfig(scenario="large_grid"), device="cpu")
            if network == "grid25" else RealNetEnv(EnvConfig(), device="cpu"))
     spec = make_policy_spec(env.spec, ModelConfig(
-        num_fc=width, num_lstm=width, sparse_comm=True), "ma2c_nc")
+        num_fc=width, num_lstm=width, sparse_comm=True), agent)
     dt = getattr(torch, dtype_name)
     p = mask_comm_params(spec, init_policy_params(
         torch.Generator().manual_seed(seed), spec))
@@ -716,11 +725,23 @@ def embed_args(network, B, dtype_name, width, seed=0):
     fp = torch.softmax(t(B, n, spec.n_a_max).float(), -1).to(dt)
     done = torch.tensor((rng.random(B) < 0.3).astype(np.float32),
                         device="cuda").to(dt)
-    w = [x.to("cuda", dt) for x in (p.w_obs.w, p.w_obs.b, p.w_fp, p.w_msg)]
-    fwd = (t(B, n, spec.n_s_max), fp, t(B, n, spec.n_lstm, scale=0.5), done,
-           *w, consts.nbr, consts.rev)
+    if agent == "ma2c_dial":
+        obs, h = t(B, n, spec.n_s_max), t(B, n, spec.n_lstm, scale=0.5)
+        w_dial = [x.to("cuda", dt) for x in p.w_dial]
+        # contiguous, so that the times are the kernels' alone (the policy's
+        # einsum leaves the message [agent, row] major: the wrapper copies)
+        msg = (torch.einsum("bmh,mhd->bmd", h * (1.0 - done)[:, None, None],
+                            w_dial[0]) + w_dial[1]).contiguous()
+        fwd = (obs, None, msg, None, p.w_obs.w.to("cuda", dt),
+               p.w_obs.b.to("cuda", dt), None, p.w_msg.to("cuda", dt),
+               consts.nbr, consts.rev)
+    else:
+        w = [x.to("cuda", dt) for x in (p.w_obs.w, p.w_obs.b, p.w_fp,
+                                        p.w_msg)]
+        fwd = (t(B, n, spec.n_s_max), fp, t(B, n, spec.n_lstm, scale=0.5),
+               done, *w, consts.nbr, consts.rev)
     e = ce.comm_embed_fwd_ref(*fwd[:9])
-    bwd = (*fwd[:4], w[3], consts.nbr, consts.rev, e,
+    bwd = (*fwd[:4], fwd[7], consts.nbr, consts.rev, e,
            t(B, n, spec.n_fc, scale=0.1))
     return spec, fwd, bwd
 
@@ -729,16 +750,20 @@ def embed_bytes_flops(spec, B, dtype):
     """Bytes each comm-embedding kernel must move (inputs read once, outputs
     written once) and its products' operations. The products read the
     weights of the valid slots alone; the backward writes the gradients of
-    every slot (an empty slot's as zeros)."""
+    every slot (an empty slot's as zeros). DIAL's call (``spec`` of
+    ``CommType.DIAL``): no fingerprints (A = 0) and no done flags, and its
+    messages (``n_msg`` wide) in the place of h."""
     import torch
+    from deeprl_network_tpu_torch.models.policies import CommType
     es = torch.tensor([], dtype=dtype).element_size()
-    N, S, A, F, H = (spec.n_agent, spec.n_s_max, spec.n_a_max, spec.n_fc,
-                     spec.n_lstm)
+    dial = spec.comm_type is CommType.DIAL
+    N, S, F = spec.n_agent, spec.n_s_max, spec.n_fc
+    A, H = (0, spec.n_msg) if dial else (spec.n_a_max, spec.n_lstm)
     _, valid = spec.neighbor_lists()
     K, edges = valid.shape[1], float(valid.sum())
     terms = N * (S + 1) + edges * (A + H)
     grads = N * (S + 1 + K * A + K * H) * F * es
-    inputs = (B * N * (S + A + H) + B) * es
+    inputs = (B * N * (S + A + H) + (0 if dial else B)) * es
     act_f = B * N * F * es
     fwd = (inputs + terms * F * es + act_f, 2 * B * F * terms)
     # obs, fp, h, done, the valid W_msg, e, de in; dh and the weight
@@ -761,11 +786,13 @@ def check_comm_embed(card):
     t_phase = time.perf_counter()
     flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     entries = {}
-    for name, network, B, dt_name, width in EMBED_CASES:
-        spec, fwd_args, bwd_args = embed_args(network, B, dt_name, width)
+    for name, network, B, dt_name, width, agent in EMBED_CASES:
+        spec, fwd_args, bwd_args = embed_args(network, B, dt_name, width,
+                                              agent=agent)
         dt = getattr(torch, dt_name)
+        n_a = 0 if fwd_args[1] is None else spec.n_a_max
         variant = ce.kernel_variant(
-            dt, spec.n_s_max, spec.n_a_max, fwd_args[8].shape[1], width,
+            dt, spec.n_s_max, n_a, fwd_args[8].shape[1], width,
             width, fwd_args[9].shape[1])
         before = dict(ce.LAUNCHES)
         e = ce.comm_embed_fwd(*fwd_args)
@@ -774,20 +801,27 @@ def check_comm_embed(card):
         torch.cuda.synchronize()
         err_f = max_err([e], [ce.comm_embed_fwd_ref(*fwd_args[:9])],
                         TOL[(dt_name, "fwd")], "e")
-        err_b = max_err(got_b, ce.comm_embed_bwd_ref(*bwd_args),
-                        TOL[(dt_name, "bwd")], "dh,dw_obs,db_obs,dw_fp,dw_msg")
+        # DIAL's call has no fingerprint gradient
+        names = [k for k, g in zip(("dh", "dw_obs", "db_obs", "dw_fp",
+                                    "dw_msg"), got_b) if g is not None]
+        got_b, again = ([g for g in x if g is not None]
+                        for x in (got_b, again))
+        err_b = max_err(got_b, [g for g in ce.comm_embed_bwd_ref(*bwd_args)
+                                if g is not None],
+                        TOL[(dt_name, "bwd")], ",".join(names))
         if not all(torch.equal(a, b) for a, b in zip(got_b, again)):
             raise AssertionError(f"comm embed {name}: the backward is not "
                                  "deterministic")
         moved = {k: v - before[k] for k, v in ce.LAUNCHES.items()
                  if v != before[k]}
-        if moved != {"comm_embed_fwd": 1, f"comm_embed_fwd_{variant}": 1,
-                     "comm_embed_bwd": 2, f"comm_embed_bwd_{variant}": 2}:
+        base = "comm_embed_dial" if agent == "ma2c_dial" else "comm_embed"
+        if moved != {f"{base}_fwd": 1, f"{base}_fwd_{variant}": 1,
+                     f"{base}_bwd": 2, f"{base}_bwd_{variant}": 2}:
             raise AssertionError(f"comm embed {name}: launch counts moved "
                                  f"by {moved}, expected {variant}")
         row = {"shape": name, "network": network, "B": B, "dtype": dt_name,
-               "width": width, "variant": variant, "fwd_max_abs_err": err_f,
-               "bwd_max_abs_err": err_b}
+               "width": width, "agent": agent, "variant": variant,
+               "fwd_max_abs_err": err_f, "bwd_max_abs_err": err_b}
         if name in EMBED_TIMED:
             row.update(embed_times(spec, fwd_args, bwd_args, flush))
             (fb, ff), (bb, bf) = embed_bytes_flops(spec, B, dt)
@@ -815,16 +849,23 @@ def embed_times(spec, fwd_args, bwd_args, flush):
     """Times of the comm embedding at one case: the kernels (warm, cold,
     the host's call), the twins, and the PyTorch ops that ``_embed`` ran
     before them (``ops_ms``: the forward alone; the backward's entry: the
-    forward with its autograd backward, less the forward)."""
+    forward with its autograd backward, less the forward). DIAL's call
+    (``fp`` None) from its messages: the ops without the masking and the
+    fingerprint term."""
     import torch
     from deeprl_network_tpu_torch.ops import comm_embed as ce
     obs, fp, h, done, w_obs, b_obs, w_fp, w_msg, nbr, rev = fwd_args
     de = bwd_args[-1]
     idx = nbr.clamp(min=0).long()
     leaves = [x.clone().requires_grad_() for x in (h, w_obs, b_obs, w_fp,
-                                                     w_msg)]
+                                                     w_msg) if x is not None]
 
     def ops_fwd():
+        if fp is None:
+            hh, wo, bo, wm = leaves
+            x = torch.einsum("bns,nsf->bnf", obs, wo) + bo
+            x = x + torch.einsum("bnkx,nkxf->bnf", hh[:, idx], wm)
+            return torch.relu(x)
         hh, wo, bo, wf, wm = leaves
         h_prev = hh * (1.0 - done)[:, None, None]
         x = torch.einsum("bns,nsf->bnf", obs, wo) + bo
@@ -907,24 +948,40 @@ def zero_counts():
             counts[k] = 0
 
 
+def card_view(counts):
+    """Wrapper counts as the card's kernel names count them (``on_card``):
+    DIAL's comm-embedding calls run NeurComm's kernels, so their counts
+    join NeurComm's keys."""
+    out = {k: v for k, v in counts.items()
+           if not k.startswith("comm_embed_dial_")}
+    for k, v in counts.items():
+        if k.startswith("comm_embed_dial_"):
+            key = k.replace("comm_embed_dial_", "comm_embed_")
+            out[key] = out.get(key, 0) + v
+    return out
+
+
 def expect_counts(what, fwd, bwd, variant, env, got=None, embed=False):
     """Raise unless ``got`` holds ``fwd`` forward and ``bwd`` backward cell
     launches, all of ``variant``, and ``env`` env-step launches; with
-    ``embed`` (MA2C_NC over packed neighbour lists) as many comm-embedding
-    launches of the same variant as cell launches, else none; returns the
-    counts. ``got`` defaults to the wrappers' counts since
-    ``zero_counts()``: launches issued from Python or captured into a CUDA
-    graph, whose replays they do not see; ``on_card`` gives what ran."""
+    ``embed`` (True: MA2C_NC over packed neighbour lists; "dial": MA2C_DIAL,
+    under DIAL's keys) as many comm-embedding launches of the same variant
+    as cell launches, else none; returns the counts. ``got`` defaults to
+    the wrappers' counts since ``zero_counts()``: launches issued from
+    Python or captured into a CUDA graph, whose replays they do not see;
+    ``on_card`` gives what ran, counted by kernel name (``card_view``)."""
     want = {k: 0 for c in wrapper_counts() for k in c}
     want.update({"lstm_cell_fwd": fwd, f"lstm_cell_fwd_{variant}": fwd,
                  "lstm_cell_bwd": bwd, f"lstm_cell_bwd_{variant}": bwd,
                  "network_env_step": env})
     if embed:
-        want.update({"comm_embed_fwd": fwd, f"comm_embed_fwd_{variant}": fwd,
-                     "comm_embed_bwd": bwd,
-                     f"comm_embed_bwd_{variant}": bwd})
+        base = "comm_embed_dial" if embed == "dial" else "comm_embed"
+        want.update({f"{base}_fwd": fwd, f"{base}_fwd_{variant}": fwd,
+                     f"{base}_bwd": bwd, f"{base}_bwd_{variant}": bwd})
     if got is None:
         got = {k: v for c in wrapper_counts() for k, v in c.items()}
+    else:
+        want = card_view(want)
     if got != want:
         raise AssertionError(f"{what}: kernel launches {got}, expected "
                              f"{want}")
@@ -1199,8 +1256,8 @@ def graph_against_eager(what, make, n=3):
     eager, graph = counts[False], counts[True]
     per = {k: v // n for k, v in eager["issued"].items()}
     want = {"issued": {k: 2 * v for k, v in per.items()},
-            "ran": {k: (n + 1) * v for k, v in per.items()}}
-    if (eager["ran"] != eager["issued"]
+            "ran": card_view({k: (n + 1) * v for k, v in per.items()})}
+    if (eager["ran"] != card_view(eager["issued"])
             or any(v % n for v in eager["issued"].values())
             or graph != want):
         raise AssertionError(f"graph {what}: launches {graph} under the "
@@ -1510,7 +1567,7 @@ def run_families(card: str, profile: bool, n_timed: int = 2):
         spread0 = agent_spread(ts.params)
         ts, m, counts, step_times = timed_steps(
             what, fns, ts, n_timed, 2 * T + 1, T, "tc", T,
-            embed=agent == "ma2c_nc")
+            embed={"ma2c_nc": True, "ma2c_dial": "dial"}.get(agent, False))
         line = {"agent": agent, "loss": float(m["loss"]),
                 "grad_norm": float(m["grad_norm"]),
                 "env_steps_per_s": n_timed * T * B / sum(step_times),

@@ -22,10 +22,15 @@ relu (``_embed``):
   delivered through per-edge blocks [n_msg, n_fc].
 ``neighbor_obs`` adds sum_j W_nobs[i,j] (obs_alpha o_j), detached, to any of
 them.
+
+``embed_marks(mark)`` has ``policy_step_batched`` call ``mark("begin")``
+and ``mark("end")`` around ``_embed`` while it is entered: the rollout marks
+its ``comm`` span so (``utils/spans.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import enum
 from dataclasses import dataclass, field
 from typing import Callable, List, NamedTuple, Optional, Tuple
@@ -42,6 +47,21 @@ from deeprl_network_tpu_torch.ops.comm_embed import (
 from deeprl_network_tpu_torch.ops.lstm_cell import fused_agent_lstm
 
 BIG_NEG = -1e9
+# called with "begin" and "end" around ``_embed`` (``embed_marks``)
+_embed_mark: Optional[Callable[[str], None]] = None
+
+
+@contextlib.contextmanager
+def embed_marks(mark: Optional[Callable[[str], None]]):
+    """``policy_step_batched`` calls ``mark("begin")`` before its comm
+    embedding and ``mark("end")`` after it while this is entered (None:
+    no marks)."""
+    global _embed_mark
+    outer, _embed_mark = _embed_mark, mark
+    try:
+        yield
+    finally:
+        _embed_mark = outer
 
 
 class CommType(str, enum.Enum):
@@ -279,15 +299,19 @@ def _embed(spec: PolicySpec, params: PolicyParams, h_prev: torch.Tensor,
     """Pre-LSTM input embedding [B, N, n_fc]: own obs through the per-agent
     fc plus the comm type's message term. With ``done`` [B] given,
     ``h_prev`` is the unmasked carry and rows where ``done`` is set read
-    zeros of it. NEURCOMM over packed neighbour lists (``sparse_comm``,
-    no ``neighbor_obs``) is one kernel each way (``ops/comm_embed.py``, the
-    plain twin on the CPU); every other case runs the einsums below. Einsum
+    zeros of it. NEURCOMM and DIAL over packed neighbour lists
+    (``sparse_comm``, no ``neighbor_obs``) are one kernel each way
+    (``ops/comm_embed.py``, the plain twin on the CPU): DIAL's message head
+    runs as its einsum, and the kernel sums the messages over the lists
+    without a fingerprint term or a mask; every other case runs the einsums
+    below. Einsum
     letters: b env, n receiving agent, m sending agent (dense), k neighbour
     slot (packed), x the sender's feature (obs, fingerprint, hidden state or
     DIAL message), d DIAL message width, f embedding."""
     sparse = spec.sparse_comm and spec.neighbor_mask is not None
     ct = spec.comm_type
-    if sparse and ct is CommType.NEURCOMM and not spec.neighbor_obs:
+    kernel = sparse and not spec.neighbor_obs
+    if kernel and ct is CommType.NEURCOMM:
         if done is None:
             done = h_prev.new_zeros(h_prev.shape[0])
         return comm_embed(obs, fp, h_prev, done, params.w_obs.w,
@@ -295,6 +319,13 @@ def _embed(spec: PolicySpec, params: PolicyParams, h_prev: torch.Tensor,
                           consts.nbr, consts.rev)
     if done is not None:
         h_prev = h_prev * (1.0 - done.to(h_prev.dtype))[:, None, None]
+    if ct == CommType.DIAL:
+        msg = (torch.einsum("bmh,mhd->bmd", h_prev, params.w_dial.w)
+               + params.w_dial.b)
+        if kernel:
+            return comm_embed(obs, None, msg, None, params.w_obs.w,
+                              params.w_obs.b, None, params.w_msg, consts.nbr,
+                              consts.rev)
     idx = consts.idx
 
     def edge_sum(x, w):
@@ -319,8 +350,6 @@ def _embed(spec: PolicySpec, params: PolicyParams, h_prev: torch.Tensor,
         mean_h = (adj @ h_prev) / consts.deg.to(h_prev.dtype)
         e = e + mean_h @ params.w_msg
     elif ct == CommType.DIAL:
-        msg = (torch.einsum("bmh,mhd->bmd", h_prev, params.w_dial.w)
-               + params.w_dial.b)
         e = e + edge_sum(msg, params.w_msg)
     return torch.relu(e)
 
@@ -340,7 +369,12 @@ def policy_step_batched(spec: PolicySpec, params: PolicyParams,
     if consts is None:
         consts = policy_consts(spec, obs.device)
     done = done.to(carry.h.dtype)
+    mark = _embed_mark
+    if mark is not None:
+        mark("begin")
     e = _embed(spec, params, carry.h, obs, fp, consts, done)
+    if mark is not None:
+        mark("end")
     c2, h2 = fused_agent_lstm(
         (params.lstm.wx, params.lstm.wh, params.lstm.b),
         (carry.c, carry.h), e, done)

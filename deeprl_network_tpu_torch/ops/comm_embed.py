@@ -1,5 +1,6 @@
-"""The NeurComm input embedding over packed neighbour lists: a CUDA kernel
-each way, their plain twins, and the ``autograd.Function`` that joins them.
+"""The comm input embedding over packed neighbour lists (NeurComm's and
+DIAL's): a CUDA kernel each way, their plain twins, and the
+``autograd.Function`` that joins them.
 
 The MA2C_NC policy with ``sparse_comm`` feeds each agent's LSTM cell with
 
@@ -7,16 +8,20 @@ The MA2C_NC policy with ``sparse_comm`` feeds each agent's LSTM cell with
                   + sum_k fp[b, nbr[n,k]] W_fp[n,k]
                   + sum_k ((1 - done[b]) h[b, nbr[n,k]]) W_msg[n,k])
 
-over the valid slots k of agent n (``models/policies.py`` ``_embed``). As
-PyTorch ops that is a gather of a [B, N, K, X] tensor for each sender
-feature, three einsums, the adds and the relu: about 12 kernels a control
-step forward and 16 backward, where the gradient of ``h``'s gather is a
-sorting ``index_put``. ``comm_embed`` computes it in one launch forward and
-one backward call (two launches on the tensor cores: g = de * (e > 0), then
-the gradients; ``csrc/comm_embed.cu`` states the design and its bound): the
-gather is read inside the per-agent product and the backward sums over the
-reverse neighbour list, deterministically. It replaces no TPU kernel: XLA
-fuses the JAX package's einsum chain.
+over the valid slots k of agent n (``models/policies.py`` ``_embed``).
+The MA2C_DIAL policy makes the same call with no fingerprint term (``fp``
+and ``w_fp`` None: A = 0) and its messages m = ((1 - done) h) W_dial +
+b_dial in the place of h, unmasked (``done`` None): the message head stays
+an einsum of the caller's, whose autograd takes the gradient of m back to h
+and the head. As PyTorch ops that is a gather of a [B, N, K, X] tensor for
+each sender feature, three einsums, the adds and the relu: about 12
+kernels a control step forward and 16 backward, where the gradient of
+``h``'s gather is a sorting ``index_put``. ``comm_embed`` computes it in one
+launch forward and one backward call (two launches on the tensor cores:
+g = de * (e > 0), then the gradients; ``csrc/comm_embed.cu`` states the
+design and its bound): the gather is read inside the per-agent product and
+the backward sums over the reverse neighbour list, deterministically. It
+replaces no TPU kernel: XLA fuses the JAX package's einsum chain.
 
 Dispatch is by the tensors' device: CUDA tensors launch a kernel (and raise
 if a launch fails; there is no fallback), CPU tensors run the plain twins
@@ -27,13 +32,16 @@ On the card ``kernel_variant`` picks ``"tc"`` (bf16 on the tensor cores,
 where the LSTM cell takes its tensor-core kernel and the layout fits) or
 ``"general"`` (f32 FMAs on the CUDA cores: float32, and every other width).
 Launches are counted in ``LAUNCHES``: ``comm_embed_fwd`` / ``comm_embed_bwd``
-and per variant (``comm_embed_fwd_tc``, ...); a launch that a CUDA graph
-captures counts once, at the capture.
+and per variant (``comm_embed_fwd_tc``, ...) for the calls that mask their
+sender feature by ``done`` (NeurComm's), ``comm_embed_dial_*`` for those
+that do not (DIAL's messages); both run the same kernels. A launch that a
+CUDA graph captures counts once, at the capture.
 
-Shapes: obs [B,N,S], fp [B,N,A], h [B,N,H] (the unmasked carry), done [B],
-w_obs [N,S,F], b_obs [N,F], w_fp [N,K,A,F], w_msg [N,K,H,F] (packed by
-``mask_comm_params``), and the tables of ``neighbour_tables``: nbr [N,K] and
-rev [N,R] int32. float32 or bfloat16, one dtype for all.
+Shapes: obs [B,N,S], fp [B,N,A] or None, h [B,N,H] (the unmasked carry, or
+DIAL's messages, H = n_msg), done [B] or None, w_obs [N,S,F], b_obs [N,F],
+w_fp [N,K,A,F] or None, w_msg [N,K,H,F] (packed by ``mask_comm_params``),
+and the tables of ``neighbour_tables``: nbr [N,K] and rev [N,R] int32.
+float32 or bfloat16, one dtype for all.
 """
 
 from __future__ import annotations
@@ -50,9 +58,9 @@ from deeprl_network_tpu_torch.ops.lstm_cell import (
     _DTYPE_CODE, _acc_dtype, _ptr,
 )
 
-LAUNCHES = {"comm_embed_fwd": 0, "comm_embed_bwd": 0,
-            "comm_embed_fwd_tc": 0, "comm_embed_fwd_general": 0,
-            "comm_embed_bwd_tc": 0, "comm_embed_bwd_general": 0}
+LAUNCHES = {f"{family}_{d}{v}": 0
+            for family in ("comm_embed", "comm_embed_dial")
+            for d in ("fwd", "bwd") for v in ("", "_tc", "_general")}
 
 _VARIANT_CODE = {"general": 0, "tc": 1}
 _BT = 64            # batch rows of a tile, kBT in comm_embed.cu
@@ -101,22 +109,24 @@ def neighbour_tables(idx: np.ndarray, valid: np.ndarray
 def _operand(obs, fp, h, done, nbr):
     """The gathered operand [B, N, S + 1 + K A + K H] in the compute dtype:
     [obs | 1 | fp of each slot | h of each slot, times 1 - done], empty slots
-    zero."""
+    zero; no fingerprint columns where ``fp`` is None, h unmasked where
+    ``done`` is."""
     dt = h.dtype
-    h = h * (1.0 - done.to(dt))[:, None, None]
+    if done is not None:
+        h = h * (1.0 - done.to(dt))[:, None, None]
     vm = (nbr >= 0).to(dt)[None, :, :, None]
     idx = nbr.clamp(min=0).long()
     one = torch.ones(h.shape[:2] + (1,), dtype=dt, device=h.device)
-    return torch.cat([obs, one, (fp[:, idx] * vm).flatten(2),
-                      (h[:, idx] * vm).flatten(2)], -1)
+    fps = [] if fp is None else [(fp[:, idx] * vm).flatten(2)]
+    return torch.cat([obs, one, *fps, (h[:, idx] * vm).flatten(2)], -1)
 
 
 def comm_embed_fwd_ref(obs, fp, h, done, w_obs, b_obs, w_fp, w_msg, nbr):
     """Plain twin of the forward kernel: e [B, N, F]."""
     dt = h.dtype
     acc = _acc_dtype(dt)
-    w = torch.cat([w_obs, b_obs[:, None], w_fp.flatten(1, 2),
-                   w_msg.flatten(1, 2)], 1)
+    w_fps = [] if w_fp is None else [w_fp.flatten(1, 2)]
+    w = torch.cat([w_obs, b_obs[:, None], *w_fps, w_msg.flatten(1, 2)], 1)
     e = torch.einsum("bnd,ndf->bnf", _operand(obs, fp, h, done, nbr).to(acc),
                      w.to(acc)).to(dt)
     return torch.relu(e)
@@ -125,11 +135,11 @@ def comm_embed_fwd_ref(obs, fp, h, done, w_obs, b_obs, w_fp, w_msg, nbr):
 def comm_embed_bwd_ref(obs, fp, h, done, w_msg, nbr, rev, e, de):
     """Plain twin of the backward kernel: (dh, dw_obs, db_obs, dw_fp,
     dw_msg), each summed in f32 and rounded once to the compute dtype; the
-    gradient of an empty slot is 0."""
+    gradient of an empty slot is 0; dw_fp is None where ``fp`` is."""
     dt = h.dtype
     acc = _acc_dtype(dt)
     N, K, H, F = w_msg.shape
-    S, A = obs.shape[-1], fp.shape[-1]
+    S, A = obs.shape[-1], 0 if fp is None else fp.shape[-1]
     g = torch.where(e > 0, de, torch.zeros_like(de)).to(acc)
     dw = torch.einsum("bnd,bnf->ndf",
                       _operand(obs, fp, h, done, nbr).to(acc), g).to(dt)
@@ -137,9 +147,11 @@ def comm_embed_bwd_ref(obs, fp, h, done, w_msg, nbr, rev, e, de):
     r = rev.clamp(min=0).long()
     gg = g[:, r // K] * (rev >= 0).to(acc)[None, :, :, None]   # [B, N, R, F]
     dh = torch.einsum("bmrf,mrhf->bmh", gg, w_msg[r // K, r % K].to(acc))
-    dh = dh * (1.0 - done.to(dt)).to(acc)[:, None, None]
+    if done is not None:
+        dh = dh * (1.0 - done.to(dt)).to(acc)[:, None, None]
     return (dh.to(dt), dw_obs.contiguous(), db[:, 0].contiguous(),
-            dw_fp.reshape(N, K, A, F), dw_msg.reshape(N, K, H, F))
+            None if fp is None else dw_fp.reshape(N, K, A, F),
+            dw_msg.reshape(N, K, H, F))
 
 
 def tc_shared_bytes(S: int, A: int, K: int, F: int, H: int,
@@ -184,7 +196,11 @@ def dh_splits(B: int, R: int) -> int:
     return max(1, min(-(-B // _BT), 2 * R))
 
 
-def _count(name: str, variant: str) -> None:
+def _count(name: str, variant: str, done) -> None:
+    """A launch under NeurComm's keys, or DIAL's where the call masks
+    nothing (``done`` None)."""
+    if done is None:
+        name = name.replace("comm_embed", "comm_embed_dial")
     LAUNCHES[name] += 1
     LAUNCHES[f"{name}_{variant}"] += 1
 
@@ -201,11 +217,12 @@ def _ready(t: torch.Tensor, dtype, device, name: str) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _dims(obs, fp, h, w_msg, nbr, rev):
+def _dims(obs, fp, h, done, w_msg, nbr, rev):
     B, N, H = h.shape
-    S, A = obs.shape[-1], fp.shape[-1]
+    S, A = obs.shape[-1], 0 if fp is None else fp.shape[-1]
     K, F = w_msg.shape[1], w_msg.shape[3]
-    if obs.shape != (B, N, S) or fp.shape != (B, N, A) \
+    if obs.shape != (B, N, S) or (fp is not None and fp.shape != (B, N, A)) \
+            or (done is not None and done.shape != (B,)) \
             or w_msg.shape != (N, K, H, F) or nbr.shape != (N, K) \
             or rev.ndim != 2 or rev.shape[0] != N:
         raise ValueError("comm_embed: inconsistent shapes")
@@ -224,20 +241,26 @@ def _variant_for(dtype, dims, R, _variant):
     return variant
 
 
-def _launch(name: str, variant: str, fn, *args) -> None:
+def _launch(name: str, variant: str, done, fn, *args) -> None:
     err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{name} ({variant}) kernel launch failed: "
                            f"cudaError {err}")
-    _count(name, variant)
+    _count(name, variant, done)
+
+
+def _ready_or_none(t, dtype, device, name):
+    return None if t is None else _ready(t, dtype, device, name)
 
 
 def comm_embed_fwd(obs, fp, h, done, w_obs, b_obs, w_fp, w_msg, nbr, rev, *,
                    _variant: Optional[str] = None) -> torch.Tensor:
     """Forward: e [B, N, F]. Launches the CUDA kernel for CUDA tensors
     (which one: ``kernel_variant``, from every shape, so that the backward
-    takes the same), the plain twin for CPU tensors. ``_variant`` is for
-    tests and measurements; the model's path never passes it."""
+    takes the same), the plain twin for CPU tensors. ``fp`` with ``w_fp``,
+    and ``done``, may be None (no fingerprint term; h unmasked).
+    ``_variant`` is for tests and measurements; the model's path never
+    passes it."""
     if h.device.type == "cpu":
         return comm_embed_fwd_ref(obs, fp, h, done, w_obs, b_obs, w_fp,
                                   w_msg, nbr)
@@ -246,17 +269,19 @@ def comm_embed_fwd(obs, fp, h, done, w_obs, b_obs, w_fp, w_msg, nbr, rev, *,
     if h.dtype not in _DTYPE_CODE:
         raise TypeError(f"comm_embed kernels take float32 or bfloat16, got "
                         f"{h.dtype}")
-    dims = _dims(obs, fp, h, w_msg, nbr, rev)
+    dims = _dims(obs, fp, h, done, w_msg, nbr, rev)
     B, N, S, A, K, F, H = dims
     if w_obs.shape != (N, S, F) or b_obs.shape != (N, F) \
-            or w_fp.shape != (N, K, A, F):
+            or (w_fp is None) != (fp is None) \
+            or (w_fp is not None and w_fp.shape != (N, K, A, F)):
         raise ValueError("comm_embed_fwd: inconsistent weight shapes")
     dev, dt = h.device, h.dtype
     obs, fp, h, w_obs, b_obs, w_fp, w_msg = (
-        _ready(t, dt, dev, name) for t, name in (
+        _ready_or_none(t, dt, dev, name) for t, name in (
             (obs, "obs"), (fp, "fp"), (h, "h"), (w_obs, "w_obs"),
             (b_obs, "b_obs"), (w_fp, "w_fp"), (w_msg, "w_msg")))
-    done = _ready(done.to(dt), dt, dev, "done")
+    if done is not None:
+        done = _ready(done.to(dt), dt, dev, "done")
     nbr = _ready(nbr, torch.int32, dev, "nbr")
     variant = _variant_for(dt, dims, rev.shape[1], _variant)
     splits = 1
@@ -266,7 +291,7 @@ def comm_embed_fwd(obs, fp, h, done, w_obs, b_obs, w_fp, w_msg, nbr, rev, *,
     lib = _kernels()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _launch("comm_embed_fwd", variant, lib.comm_embed_fwd,
+        _launch("comm_embed_fwd", variant, done, lib.comm_embed_fwd,
                 _DTYPE_CODE[dt], _VARIANT_CODE[variant], _ptr(obs), _ptr(fp),
                 _ptr(h), _ptr(done), _ptr(w_obs), _ptr(b_obs), _ptr(w_fp),
                 _ptr(w_msg), _ptr(nbr), _ptr(e), B, N, S, A, K, F, H, splits,
@@ -277,8 +302,9 @@ def comm_embed_fwd(obs, fp, h, done, w_obs, b_obs, w_fp, w_msg, nbr, rev, *,
 def comm_embed_bwd(obs, fp, h, done, w_msg, nbr, rev, e, de, *,
                    _variant: Optional[str] = None):
     """Backward: (dh, dw_obs, db_obs, dw_fp, dw_msg), all in the compute
-    dtype, the weight gradients views of one allocation. Launches one CUDA
-    kernel for CUDA tensors, the plain twin for CPU tensors."""
+    dtype, the weight gradients views of one allocation (dw_fp None where
+    ``fp`` is). Launches one CUDA kernel for CUDA tensors, the plain twin
+    for CPU tensors."""
     if h.device.type == "cpu":
         return comm_embed_bwd_ref(obs, fp, h, done, w_msg, nbr, rev, e, de)
     if h.device.type != "cuda":
@@ -286,17 +312,18 @@ def comm_embed_bwd(obs, fp, h, done, w_msg, nbr, rev, e, de, *,
     if h.dtype not in _DTYPE_CODE:
         raise TypeError(f"comm_embed kernels take float32 or bfloat16, got "
                         f"{h.dtype}")
-    dims = _dims(obs, fp, h, w_msg, nbr, rev)
+    dims = _dims(obs, fp, h, done, w_msg, nbr, rev)
     B, N, S, A, K, F, H = dims
     R = rev.shape[1]
     if e.shape != (B, N, F) or de.shape != (B, N, F):
         raise ValueError("comm_embed_bwd: inconsistent shapes")
     dev, dt = h.device, h.dtype
     obs, fp, h, w_msg, e, de = (
-        _ready(t, dt, dev, name) for t, name in (
+        _ready_or_none(t, dt, dev, name) for t, name in (
             (obs, "obs"), (fp, "fp"), (h, "h"), (w_msg, "w_msg"), (e, "e"),
             (de, "de")))
-    done = _ready(done.to(dt), dt, dev, "done")
+    if done is not None:
+        done = _ready(done.to(dt), dt, dev, "done")
     nbr = _ready(nbr, torch.int32, dev, "nbr")
     rev = _ready(rev, torch.int32, dev, "rev")
     variant = _variant_for(dt, dims, R, _variant)
@@ -311,10 +338,12 @@ def comm_embed_bwd(obs, fp, h, done, w_msg, nbr, rev, e, de, *,
         part.view(shape) for part, shape in zip(
             torch.split(flat, sizes),
             [(N, S, F), (N, F), (N, K, A, F), (N, K, H, F)]))
+    if fp is None:
+        dw_fp = None
     lib = _kernels()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        _launch("comm_embed_bwd", variant, lib.comm_embed_bwd,
+        _launch("comm_embed_bwd", variant, done, lib.comm_embed_bwd,
                 _DTYPE_CODE[dt], _VARIANT_CODE[variant], _ptr(obs), _ptr(fp),
                 _ptr(h), _ptr(done), _ptr(w_msg), _ptr(nbr), _ptr(rev),
                 _ptr(e), _ptr(de), _ptr(g), _ptr(dh), _ptr(dw_obs), _ptr(db),
@@ -327,7 +356,7 @@ class CommEmbed(torch.autograd.Function):
     """The embedding with its fused backward. Saves (obs, fp, h, done,
     w_msg, nbr, rev) and its output e, whose sign is the relu's mask (the
     LSTM cell keeps e as its input, so it costs no memory); obs, fp, done
-    and the tables get no gradient."""
+    and the tables get no gradient, nor a ``w_fp`` that is None."""
 
     @staticmethod
     def forward(ctx, obs, fp, h, done, w_obs, b_obs, w_fp, w_msg, nbr, rev):
@@ -347,9 +376,10 @@ class CommEmbed(torch.autograd.Function):
 def comm_embed(obs, fp, h, done, w_obs, b_obs, w_fp, w_msg, nbr,
                rev) -> torch.Tensor:
     """e = relu(...) of the module docstring: differentiable in h and the
-    four weights. ``fp`` is data (detached here); ``obs`` gets no gradient,
-    and an ``obs`` that requires one is refused."""
+    weights. ``fp`` is data (detached here); ``obs`` gets no gradient, and
+    an ``obs`` that requires one is refused. DIAL's call: ``fp``, ``done``
+    and ``w_fp`` None, h its messages."""
     if obs.requires_grad:
         raise ValueError("comm_embed: obs gets no gradient; detach it")
-    return CommEmbed.apply(obs, fp.detach(), h, done, w_obs, b_obs, w_fp,
-                           w_msg, nbr, rev)
+    return CommEmbed.apply(obs, None if fp is None else fp.detach(), h, done,
+                           w_obs, b_obs, w_fp, w_msg, nbr, rev)

@@ -14,6 +14,15 @@
 //
 // where rev[m] lists the (receiver, slot) pairs that read sender m.
 //
+// The MA2C_DIAL policy's call is the same sum with no fingerprint term (A = 0:
+// no fp, no W_fp) and a sender feature that is its message, not a hidden state:
+//
+//   e[b,n] = relu(obs[b,n] W_obs[n] + b_obs[n] + sum_k x[b, nbr[n,k]] W_msg[n,k])
+//
+// with x = m = ((1 - done) h) W_dial + b_dial formed by the caller, so that no
+// row is masked here (done is null: m_b = 1) and the gradient dx goes back to
+// h and the head through the caller's autograd.
+//
 // No TPU kernel is replaced: the JAX package writes this as einsums over a
 // gathered [B, N, K, X] tensor (deeprl_network_tpu/models/policies.py
 // `_embed`) and XLA fuses the chain. The PyTorch ops of the same chain ran
@@ -34,10 +43,11 @@
 // writes e, 6.5 MB and 0.57 GFLOP over the valid slots: 1.9 us, by bytes. The
 // backward reads the same inputs, e and de and writes dh and the weight
 // gradients, 12.2 MB: 3.6 us. Both are bound by bytes by two orders of
-// magnitude over the tensor cores' rate. What stands between a kernel and that
-// bound is the gather: every row of h is read by its K receivers' blocks, and
-// a block's copies go through one SM, which takes in 8 to 12 bytes a cycle
-// when every SM asks at once. So the design moves each byte as few times as
+// magnitude over the tensor cores' rate. DIAL's call at the same shape (no
+// fingerprints, no done flags) moves 6.1 and 11.8 MB: 1.8 and 3.5 us. What
+// stands between a kernel and that bound is the gather: every row of h is read
+// by its K receivers' blocks, and a block's copies go through one SM, which
+// takes in 8 to 12 bytes a cycle when every SM asks at once. So the design moves each byte as few times as
 // it can and keeps every SM's copies in flight:
 //   * One launch forward, two backward (g = de * (e > 0) formed once, then one
 //     kernel whose blocks take one of two roles), in place of the gather, the
@@ -491,8 +501,9 @@ comm_embed_tc_fwd_kernel(const bf16* __restrict__ obs, const bf16* __restrict__ 
     // [Pp, D) W_msg (K x H rows; an empty slot's are zeros, not read)
     copy_box<kDrainers>(ws, L.WP, w_obs + (size_t)n * S * F, F, F, 0, S, dt, w_obs, S);
     copy_box<kDrainers>(ws + S * L.WP, L.WP, b_obs + (size_t)n * F, F, F, 0, 1, dt, w_obs, 1);
-    copy_box<kDrainers>(ws + (S + 1) * L.WP, L.WP, w_fp + (size_t)n * K * A * F, F, F, 0, K * A,
-                        dt, w_obs, K * A);
+    if (A > 0)
+      copy_box<kDrainers>(ws + (S + 1) * L.WP, L.WP, w_fp + (size_t)n * K * A * F, F, F, 0,
+                          K * A, dt, w_obs, K * A);
     copy_box<kDrainers>(ws + L.P * L.WP, L.WP, w_obs, F, F, 0, 0, dt, w_obs, L.Pp - L.P);
     for (int k = 0; k < K; ++k)
       copy_box<kDrainers>(ws + (L.Pp + k * H) * L.WP, L.WP, w_msg + ((size_t)n * K + k) * H * F, F,
@@ -526,7 +537,7 @@ comm_embed_tc_fwd_kernel(const bf16* __restrict__ obs, const bf16* __restrict__ 
         else
           zero_box<kFwdLoaders>(as + L.Pp + k * H, L.AP, H, lt, h);
       }
-      copy_done(stage(s, L.ds), done, b0, B, lt, h);
+      if (done != nullptr) copy_done(stage(s, L.ds), done, b0, B, lt, h);
       mbar_arrive_on_copies(&bars->full[s]);
       copy_small<kFwdLoaders>(as, L.AP, obs, fp, nb, n, N, S, A, K, L.Pp, b0, B, lt);
       mbar_arrive(&bars->full[s]);
@@ -536,16 +547,20 @@ comm_embed_tc_fwd_kernel(const bf16* __restrict__ obs, const bf16* __restrict__ 
     return;
   }
 
-  // ---- computing warps
+  // ---- computing warps (the h slots masked by done where it is given)
   const int r0 = (warp & 3) * 16, c0 = (warp >> 2) * (F / 2), g = lane >> 2;
+  const bool masked = done != nullptr;
   mbar_wait(&bars->wfull, 0);
   for (int i = 0; i < m_tiles; ++i) {
     const int s = i % kFwdStages;
     mbar_wait(&bars->full[s], (i / kFwdStages) & 1);
     const bf16* as = stage(s, L.a);
     const bf16* ds = stage(s, L.ds);
-    const bf162 mk0 = __float2bfloat162_rn(rd<bf16>(1.f - __bfloat162float(ds[r0 + g])));
-    const bf162 mk1 = __float2bfloat162_rn(rd<bf16>(1.f - __bfloat162float(ds[r0 + g + 8])));
+    bf162 mk0, mk1;
+    if (masked) {
+      mk0 = __float2bfloat162_rn(rd<bf16>(1.f - __bfloat162float(ds[r0 + g])));
+      mk1 = __float2bfloat162_rn(rd<bf16>(1.f - __bfloat162float(ds[r0 + g + 8])));
+    }
     float acc[kNT][4];
     zero(acc);
     // the fragments of step k0 + 16 are asked for before step k0's mma
@@ -555,7 +570,7 @@ comm_embed_tc_fwd_kernel(const bf16* __restrict__ obs, const bf16* __restrict__ 
       frags_kn<kNT>(b, ws, L.WP, k0, c0, lane);
     };
     auto use = [&](uint32_t (&a)[4], const uint32_t (&b)[kNT][2], int k0) {
-      if (k0 >= L.Pp) {
+      if (masked && k0 >= L.Pp) {
         a[0] = mul_bf162(a[0], mk0);
         a[1] = mul_bf162(a[1], mk1);
         a[2] = mul_bf162(a[2], mk0);
@@ -710,7 +725,7 @@ comm_embed_tc_bwd_kernel(const bf16* __restrict__ obs, const bf16* __restrict__ 
         if (j > 0)
           copy_box<kBwdLoaders>(stage(s, L.x), L.XP, h + (size_t)src_m * H, (size_t)N * H, H, b0,
                                 B, lt, gr);
-        copy_done(stage(s, L.ds), done, b0, B, lt, gr);
+        if (done != nullptr) copy_done(stage(s, L.ds), done, b0, B, lt, gr);
         mbar_arrive_on_copies(&bars->full[s]);
         if (j == 0)
           copy_small<kBwdLoaders>(stage(s, L.x), L.XP, obs, fp, idx, n, N, S, A, K, L.Pp, b0, B,
@@ -724,7 +739,7 @@ comm_embed_tc_bwd_kernel(const bf16* __restrict__ obs, const bf16* __restrict__ 
     // computing warps: rows [r0, r0 + 16) of the block's output, columns
     // [c0 F / 2, + F / 2); warps past `rows` only keep the barriers' counts
     const int n0 = c0 * (F / 2);
-    const bool mine = r0 < rows, masked = j > 0;
+    const bool mine = r0 < rows, masked = j > 0 && done != nullptr;
     float acc[kFT][4];
     zero(acc);
     for (int u = 0; u < i1 - i0; ++u) {
@@ -828,7 +843,7 @@ comm_embed_tc_bwd_kernel(const bf16* __restrict__ obs, const bf16* __restrict__ 
       if (q >= kBwdStages) mbar_wait(&bars->free_[s], (q / kBwdStages - 1) & 1);
       copy_box<kBwdLoaders>(stage(s, L.g), L.GP, gr + (size_t)rcv * F, (size_t)N * F, F, b0, B,
                             lt, gr);
-      copy_done(stage(s, L.ds), done, b0, B, lt, gr);
+      if (done != nullptr) copy_done(stage(s, L.ds), done, b0, B, lt, gr);
       mbar_arrive_on_copies(&bars->full[s]);
       mbar_arrive(&bars->full[s]);
     }
@@ -867,7 +882,7 @@ comm_embed_tc_bwd_kernel(const bf16* __restrict__ obs, const bf16* __restrict__ 
       for (int hf = 0; hf < 2; ++hf) {
         const int row = r0 + g + hf * 8, b = b0 + row;
         if (b >= B) continue;
-        const float mk = rd<bf16>(1.f - __bfloat162float(ds[row]));
+        const float mk = done != nullptr ? rd<bf16>(1.f - __bfloat162float(ds[row])) : 1.f;
 #pragma unroll
         for (int c = 0; c < kHT; ++c)
           *reinterpret_cast<bf162*>(dh + ((size_t)b * N + m) * H + n0 + c * 8 + 2 * (lane & 3)) =
@@ -906,7 +921,7 @@ comm_embed_fwd_kernel(const T* __restrict__ obs, const T* __restrict__ fp,
       acc = fmaf(to_f(fp[(bn + m) * A + a]),
                  to_f(w_fp[(((size_t)n * K + k) * A + a) * F + f]), acc);
   }
-  const float mk = row_mask(done, b);
+  const float mk = done != nullptr ? row_mask(done, b) : 1.f;
   for (int k = 0; k < K; ++k) {
     const int m = nbr[n * K + k];
     if (m < 0) continue;
@@ -948,7 +963,7 @@ comm_embed_bwd_kernel(const T* __restrict__ obs, const T* __restrict__ fp,
       const T* w = w_msg + ((size_t)v * H + j) * F;
       for (int f = 0; f < F; ++f) acc = fmaf(relu_grad_f(e, de, row + f), to_f(w[f]), acc);
     }
-    dh[i] = from_f<T>(acc * row_mask(done, b));
+    dh[i] = from_f<T>(done != nullptr ? acc * row_mask(done, b) : acc);
     return;
   }
   const size_t q = i - n_dh;
@@ -982,7 +997,7 @@ comm_embed_bwd_kernel(const T* __restrict__ obs, const T* __restrict__ fp,
     for (int b = 0; b < B; ++b) {
       const float gv = relu_grad_f(e, de, ((size_t)b * N + n) * F + f);
       float x = one ? 1.f : to_f(src[(size_t)b * pitch]);
-      if (hid) x = rd<T>(x * row_mask(done, b));
+      if (hid && done != nullptr) x = rd<T>(x * row_mask(done, b));
       acc = fmaf(x, gv, acc);
     }
   }
@@ -1023,9 +1038,11 @@ unsigned blocks_for(size_t threads, int per_block) {
 
 // C interface, loaded with ctypes. Every pointer is a device pointer to a
 // contiguous tensor of the dtype `code` gives (0 float32, 1 bfloat16), but
-// `nbr` [N, K] and `rev` [N, R] (int32, -1 marks an empty entry); `done` [B]
-// is required. `variant` 0 is `general`, 1 `tc` (bfloat16 only; h,
-// de, e and the weights 16-byte aligned). `splits`: blocks per agent of the
+// `nbr` [N, K] and `rev` [N, R] (int32, -1 marks an empty entry). `done` [B]
+// masks the sender feature `h`, and null leaves it unmasked (DIAL's
+// message); A = 0 takes no fingerprint term, and `fp`, `w_fp` and `dw_fp`
+// null. `variant` 0 is `general`, 1 `tc` (bfloat16 only; h, de, e and the
+// weights 16-byte aligned). `splits`: blocks per agent of the
 // tc forward, or per sender of the tc dh, at least 1 and at most
 // ceil(B / 64). Returns the cudaError_t of the launch.
 
@@ -1039,7 +1056,8 @@ extern "C" int comm_embed_fwd(int code, int variant, const void* obs, const void
                               const void* b_obs, const void* w_fp, const void* w_msg,
                               const void* nbr, void* e, int B, int N, int S, int A, int K,
                               int F, int H, int splits, void* stream) {
-  if (B <= 0 || N <= 0 || S <= 0 || A <= 0 || K <= 0 || F <= 0 || H <= 0)
+  if (B <= 0 || N <= 0 || S <= 0 || A < 0 || K <= 0 || F <= 0 || H <= 0 ||
+      (A > 0 && (fp == nullptr || w_fp == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (variant == 1) {
@@ -1083,7 +1101,8 @@ extern "C" int comm_embed_bwd(int code, int variant, const void* obs, const void
                               void* g, void* dh, void* dw_obs, void* db_obs, void* dw_fp,
                               void* dw_msg, int B, int N, int S, int A, int K, int F, int H, int R,
                               int splits, void* stream) {
-  if (B <= 0 || N <= 0 || S <= 0 || A <= 0 || K <= 0 || F <= 0 || H <= 0 || R <= 0)
+  if (B <= 0 || N <= 0 || S <= 0 || A < 0 || K <= 0 || F <= 0 || H <= 0 || R <= 0 ||
+      (A > 0 && (fp == nullptr || dw_fp == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (variant == 1) {

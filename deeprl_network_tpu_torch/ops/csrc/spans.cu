@@ -38,7 +38,8 @@ __device__ __forceinline__ void stamp(unsigned long long* ring, unsigned long lo
 }  // namespace
 
 #define SPANS(X) \
-  X(graph) X(update) X(rollout) X(step) X(env) X(returns) X(backward) X(allreduce) X(optimizer)
+  X(graph) X(update) X(rollout) X(step) X(comm) X(env) X(returns) X(backward) X(allreduce) \
+      X(optimizer)
 
 #define MARK(span, edge)                                                                       \
   extern "C" __global__ void span_##span##_##edge(unsigned long long* ring,                     \

@@ -34,7 +34,7 @@ update (``utils/graph.py``): captured at the first call, replayed at every
 later one. On the CPU, and with ``jit=False``, the body runs eagerly.
 
 Spans (``utils/spans.py``): the body marks its spans on the card (update,
-rollout, sampled steps with their policy and env, returns, backward,
+rollout, sampled steps with their policy, comm and env, returns, backward,
 all-reduce, optimizer; the graph adds its own), and ``train_step`` times its
 host spans; ``fns.spans.read(n)`` reads the last n updates.
 
@@ -54,6 +54,7 @@ gradients and the device-side metrics are averaged over ranks by one
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import (
     Any, Callable, Dict, List, NamedTuple, Optional, Tuple, Union,
@@ -74,9 +75,9 @@ from deeprl_network_tpu_torch.models.layers import (
 )
 from deeprl_network_tpu_torch.models.policies import (
     AGENT_TO_COMM, Carry, PolicyParams, PolicySpec, consensus_tables,
-    consensus_update, init_carry, init_fingerprint, init_policy_params,
-    mask_comm_params, policy_consts, policy_step_batched, tree_leaves,
-    tree_map, tree_unflatten,
+    consensus_update, embed_marks, init_carry, init_fingerprint,
+    init_policy_params, mask_comm_params, policy_consts, policy_step_batched,
+    tree_leaves, tree_map, tree_unflatten,
 )
 from deeprl_network_tpu_torch.parallel import distributed
 from deeprl_network_tpu_torch.utils.device import resolve_device
@@ -364,16 +365,21 @@ def make_a2c(env, mcfg: ModelConfig, tcfg: TrainConfig, agent: str = "ia2c",
         logits, values and carry keep their graph (and, under ``remat``,
         the forward is checkpointed); everything that comes out of the env
         is a constant either way. ``t`` is the step's index in the window
-        (its ``env`` span is marked where it is sampled)."""
+        (its ``comm`` and ``env`` spans are marked where it is sampled)."""
+        comm = embed_marks(lambda edge: (spans.begin if edge == "begin"
+                                         else spans.end)("comm", t))
         if mcfg.remat and torch.is_grad_enabled():
             # no noise is drawn inside, so the RNG state need not be kept
-            # (and a CUDA graph's capture may not read it)
+            # (and a CUDA graph's capture may not read it); the comm span
+            # is marked in the forward, not in the backward's recompute
             carry, logits, values = checkpoint(
                 vpstep, mparams, st.carry, st.obs, st.fp, st.prev_done,
-                use_reentrant=False, preserve_rng_state=False)
+                use_reentrant=False, preserve_rng_state=False,
+                context_fn=lambda: (comm, contextlib.nullcontext()))
         else:
-            carry, logits, values = vpstep(mparams, st.carry, st.obs, st.fp,
-                                           st.prev_done)
+            with comm:
+                carry, logits, values = vpstep(mparams, st.carry, st.obs,
+                                               st.fp, st.prev_done)
         with torch.no_grad():
             actions = torch.argmax(logits + g, dim=-1)
             new_fp = torch.softmax(logits, dim=-1)

@@ -25,6 +25,11 @@ The layout of one update (``Layout``; parents in brackets):
   same kernels, so a sampled step stands for any other: the readings scale
   the samples' sum by T over their number. The marks lie outside the
   ``remat`` checkpoint, so its recompute does not run them again.
+- ``comm`` (``policy``): the policy's input embedding with its comm term
+  (``models/policies.py`` ``_embed``: NeurComm's and DIAL's kernels, or the
+  family's einsums), on the sampled steps. Its marks lie inside the
+  forward, so under ``remat`` the rollout enters them for the forward alone
+  and not for the checkpoint's recompute.
 - ``returns`` (``update``): the bootstrap value, the returns, the loss
   terms (on the replay path the policy's second pass) and the metrics.
 - ``backward`` (``update``): ``torch.autograd.grad``.
@@ -66,16 +71,17 @@ CLOCK_BRACKETS = 5
 HOST_SPANS = ("train_step", "schedule", "copy_in", "scalars_write", "launch")
 # every device span and its parent; ``policy`` has no marks of its own
 PARENT = {"graph": None, "update": "graph", "rollout": "update",
-          "step": "rollout", "policy": "step", "env": "step",
-          "returns": "update", "backward": "update", "allreduce": "update",
-          "optimizer": "update"}
-SAMPLED = ("step", "policy", "env")
+          "step": "rollout", "policy": "step", "comm": "policy",
+          "env": "step", "returns": "update", "backward": "update",
+          "allreduce": "update", "optimizer": "update"}
+SAMPLED = ("step", "policy", "comm", "env")
 
 Mark = Tuple[str, str, Optional[int]]    # (span, "begin" or "end", sample)
 
 
 def sampled_steps(T: int) -> List[int]:
-    """The rollout steps whose ``step`` and ``env`` spans are marked: every
+    """The rollout steps whose ``step``, ``comm`` and ``env`` spans are
+    marked: every
     ``SAMPLE_EVERY``-th from ``SAMPLE_FROM`` (at T = 120 the 15 steps 4, 12,
     ..., 116, never the window's first or last), and at least one."""
     return list(range(SAMPLE_FROM, T, SAMPLE_EVERY)) or [T // 2]
@@ -95,7 +101,8 @@ class Layout:
         marks: List[Mark] = [("update", "begin", None),
                              ("rollout", "begin", None)]
         for k in range(len(self.samples)):
-            marks += [("step", "begin", k), ("env", "begin", k),
+            marks += [("step", "begin", k), ("comm", "begin", k),
+                      ("comm", "end", k), ("env", "begin", k),
                       ("env", "end", k), ("step", "end", k)]
         marks += [("rollout", "end", None)] + pair("returns") \
             + pair("backward") + (pair("allreduce") if allreduce else []) \
@@ -115,7 +122,7 @@ class Layout:
         for s in self.spans:
             self._first.append(len(begin))
             if s in SAMPLED:
-                first = "env" if s == "env" else "step"
+                first = "step" if s == "policy" else s
                 last = ("env", "begin") if s == "policy" else (s, "end")
                 begin += [self.column[(first, "begin", k)] for k in range(n)]
                 end += [self.column[last + (k,)] for k in range(n)]
@@ -354,8 +361,8 @@ class Spans:
                     col == len(self.layout.marks) - 1)
 
     def begin(self, span: str, t: Optional[int] = None) -> None:
-        """Mark ``span``'s begin; ``t``, the rollout step of a ``step`` or
-        ``env`` span, marks only where it is sampled."""
+        """Mark ``span``'s begin; ``t``, the rollout step of a ``step``,
+        ``comm`` or ``env`` span, marks only where it is sampled."""
         self._mark(span, "begin", t)
 
     def end(self, span: str, t: Optional[int] = None) -> None:

@@ -1,21 +1,25 @@
-"""The NeurComm embedding over packed neighbour lists (``ops/comm_embed.py``):
+"""The comm embedding over packed neighbour lists (``ops/comm_embed.py``),
+NeurComm's call and DIAL's (no fingerprint term, its messages unmasked):
 its plain twin against the PyTorch ops it replaces (the ``edge_sum``
-composition, kept here as the yardstick) on the 5x5 grid, Monaco-28 and a
-random graph with padded slots, in f32 and, under one relu mask, in bf16;
-the reverse neighbour table; the dispatch of ``_embed``; and, on a card
-(``needs_cuda``), the CUDA kernels against the twin and against the ops,
-their launch counts and a bitwise deterministic backward. No JAX is
-imported: the card's machine has none (``test_torch_comm.py`` holds the
-twin to the JAX package).
+composition, kept here as the yardstick; for DIAL also over dense blocks)
+on the 5x5 grid, Monaco-28 and a random graph with padded slots, in f32
+and, under one relu mask, in bf16; the reverse neighbour table; the
+dispatch of ``_embed``; and, on a card (``needs_cuda``), the CUDA kernels
+against the twin and against the ops, their launch counts and a bitwise
+deterministic backward. No JAX is imported: the card's machine has none
+(``test_torch_comm.py`` holds the twin to the JAX package).
 
 On a card: ``python -m pytest --noconftest -q tests/test_torch_comm_embed.py
 -k cuda``."""
+
+import dataclasses
 
 import numpy as np
 import pytest
 import torch
 
 from deeprl_network_tpu_torch.models import policies as tp
+from deeprl_network_tpu_torch.models.layers import FCParams
 from deeprl_network_tpu_torch.ops import comm_embed as ce
 
 # decided when each test is set up, not at import
@@ -74,26 +78,35 @@ GRAPHS = {"grid25": _grid_adj, "monaco28": _monaco_adj,
 def _spec(adj, n_s, n_a, width, comm=tp.CommType.NEURCOMM, sparse=True,
           nobs=False):
     return tp.PolicySpec(n_agent=len(adj), n_s_max=n_s, n_a_max=n_a,
-                         n_fc=width, n_lstm=width, comm_type=comm,
-                         sparse_comm=sparse, neighbor_obs=nobs,
+                         n_fc=width, n_lstm=width, n_msg=width,
+                         comm_type=comm, sparse_comm=sparse, neighbor_obs=nobs,
                          neighbor_mask=adj)
 
 
 def _case(adj, B, n_s=12, n_a=5, width=16, seed=0, dtype=torch.float32,
-          device="cpu"):
+          device="cpu", comm=tp.CommType.NEURCOMM):
     """Dense comm params (non-edge blocks zero) and inputs of a spec; the
-    carry is unmasked and rows 1, 4, 7, ... are done."""
-    spec = _spec(adj, n_s, n_a, width)
+    carry is unmasked and rows 1, 4, 7, ... are done. DIAL's params are the
+    own-obs fc, the message head (w_dial, b_dial; messages as wide as the
+    cell) and the message blocks."""
+    spec = _spec(adj, n_s, n_a, width, comm=comm)
     rng = np.random.default_rng(seed)
     n, H, F = spec.n_agent, spec.n_lstm, spec.n_fc
     t = lambda *s, scale=1.0: torch.tensor(
         (rng.standard_normal(s) * scale).astype(np.float32))
     mask = torch.as_tensor(adj)[:, :, None, None]
     deg = max(1.0, float(adj.sum(1).max()))
-    params = dict(
-        w_obs=t(n, n_s, F, scale=n_s ** -0.5), b_obs=t(n, F, scale=0.1),
-        w_fp=t(n, n, n_a, F, scale=(deg * n_a) ** -0.5) * mask,
-        w_msg=t(n, n, H, F, scale=(deg * H) ** -0.5) * mask)
+    if comm is tp.CommType.DIAL:
+        M = width
+        params = dict(
+            w_obs=t(n, n_s, F, scale=n_s ** -0.5), b_obs=t(n, F, scale=0.1),
+            w_dial=t(n, H, M, scale=H ** -0.5), b_dial=t(n, M, scale=0.5),
+            w_msg=t(n, n, M, F, scale=(deg * M) ** -0.5) * mask)
+    else:
+        params = dict(
+            w_obs=t(n, n_s, F, scale=n_s ** -0.5), b_obs=t(n, F, scale=0.1),
+            w_fp=t(n, n, n_a, F, scale=(deg * n_a) ** -0.5) * mask,
+            w_msg=t(n, n, H, F, scale=(deg * H) ** -0.5) * mask)
     fp = torch.tensor(rng.random((B, n, n_a)).astype(np.float32))
     inputs = dict(obs=t(B, n, n_s), fp=fp / fp.sum(-1, keepdim=True),
                   h=t(B, n, H, scale=0.5),
@@ -103,11 +116,17 @@ def _case(adj, B, n_s=12, n_a=5, width=16, seed=0, dtype=torch.float32,
     return spec, cast(params), cast(inputs)
 
 
-def _packed(spec, params, device="cpu"):
-    """The packed [N, K, X, F] blocks, as ``mask_comm_params`` makes them."""
+def _pack(spec, device):
+    """(consts, the packing of dense [N, N, X, F] blocks to [N, K, X, F]
+    as ``mask_comm_params`` makes it)."""
     consts = tp.policy_consts(spec, device)
     rows = torch.arange(spec.n_agent, device=device)[:, None]
-    pack = lambda w: w[rows, consts.idx] * consts.valid.to(w.dtype)
+    return consts, lambda w: w[rows, consts.idx] * consts.valid.to(w.dtype)
+
+
+def _packed(spec, params, device="cpu"):
+    """The packed [N, K, X, F] blocks, as ``mask_comm_params`` makes them."""
+    consts, pack = _pack(spec, device)
     return consts, pack(params["w_fp"]), pack(params["w_msg"])
 
 
@@ -124,53 +143,140 @@ def _edge_sum_pre(spec, consts, obs, fp, h, done, w_obs, b_obs, w_fp,
     return e + edge_sum(h_prev, w_msg)
 
 
-def _edge_sum_embed(*args):
-    """The yardstick: ``_edge_sum_pre`` and the relu."""
-    return torch.relu(_edge_sum_pre(*args))
+def _neurcomm(spec, leaves, inputs):
+    """NeurComm's e through the kernel's wrapper (the twin on the CPU), from
+    ``leaves``: h and the dense weights, packed here."""
+    consts, w_fp, w_msg = _packed(spec, leaves, leaves["h"].device)
+    return ce.comm_embed(inputs["obs"], inputs["fp"], leaves["h"],
+                         inputs["done"], leaves["w_obs"], leaves["b_obs"],
+                         w_fp, w_msg, consts.nbr, consts.rev)
 
 
-def _grads(fn, spec, params, inputs):
-    """e and the gradients of sum(sin(e)) w.r.t. the carry and the four
-    dense weights (through the packing)."""
-    leaves = {k: v.clone().requires_grad_() for k, v in params.items()}
-    h = inputs["h"].clone().requires_grad_()
-    consts, w_fp, w_msg = _packed(spec, leaves, h.device)
-    e = fn(consts, inputs["obs"], inputs["fp"], h, inputs["done"],
-           leaves["w_obs"], leaves["b_obs"], w_fp, w_msg)
-    names = ["h"] + list(leaves)
-    grads = torch.autograd.grad(torch.sin(e.float()).sum(),
-                                [h] + list(leaves.values()))
-    return e.detach(), dict(zip(names, grads))
+def _neurcomm_pre(spec, leaves, inputs):
+    consts, w_fp, w_msg = _packed(spec, leaves, leaves["h"].device)
+    return _edge_sum_pre(spec, consts, inputs["obs"], inputs["fp"],
+                         leaves["h"], inputs["done"], leaves["w_obs"],
+                         leaves["b_obs"], w_fp, w_msg)
 
 
-def _twin(consts, obs, fp, h, done, w_obs, b_obs, w_fp, w_msg):
-    return ce.comm_embed(obs, fp, h, done, w_obs, b_obs, w_fp, w_msg,
+def _dial_params(spec, leaves):
+    """DIAL's parameter tree from ``leaves``, masked or packed as the
+    policy's update makes it (``mask_comm_params``), and its consts."""
+    consts = tp.policy_consts(spec, leaves["h"].device)
+    params = tp.PolicyParams(
+        w_obs=FCParams(leaves["w_obs"], leaves["b_obs"]), lstm=None,
+        actor=None, critic=None, w_fp=None, w_msg=leaves["w_msg"],
+        w_dial=FCParams(leaves["w_dial"], leaves["b_dial"]))
+    return tp.mask_comm_params(spec, params, consts), consts
+
+
+def _dial(spec, leaves, inputs):
+    """DIAL's e through ``_embed`` as the policy runs it: the message head,
+    then the kernel's wrapper over packed lists (a ``sparse_comm`` spec) or
+    the einsums over dense blocks."""
+    params, consts = _dial_params(spec, leaves)
+    return tp._embed(spec, params, leaves["h"], inputs["obs"], inputs["fp"],
+                     consts, inputs["done"])
+
+
+def _dial_pre(spec, leaves, inputs):
+    """The yardstick before its relu: the PyTorch ops that ``_embed`` ran
+    for packed DIAL before the kernel (the masked carry, the message head,
+    ``edge_sum`` of the messages, the adds)."""
+    p, consts = _dial_params(spec, leaves)
+    h = leaves["h"] * (1.0 - inputs["done"].to(leaves["h"].dtype))[
+        :, None, None]
+    msg = torch.einsum("bmh,mhd->bmd", h, p.w_dial.w) + p.w_dial.b
+    e = torch.einsum("bns,nsf->bnf", inputs["obs"], p.w_obs.w) + p.w_obs.b
+    return e + torch.einsum("bnkx,nkxf->bnf", msg[:, consts.idx], p.w_msg)
+
+
+def _message(spec, leaves, inputs):
+    """DIAL's call from its messages (``leaves["h"]``): the kernel's own
+    inputs, no fingerprints, nothing masked."""
+    consts, pack = _pack(spec, leaves["h"].device)
+    w_msg = pack(leaves["w_msg"])
+    return ce.comm_embed(inputs["obs"], None, leaves["h"], None,
+                         leaves["w_obs"], leaves["b_obs"], None, w_msg,
                          consts.nbr, consts.rev)
 
 
-def _yardstick(spec):
-    return lambda consts, *args: _edge_sum_embed(spec, consts, *args)
+def _message_pre(spec, leaves, inputs):
+    consts, pack = _pack(spec, leaves["h"].device)
+    w_msg = pack(leaves["w_msg"])
+    e = torch.einsum("bns,nsf->bnf", inputs["obs"], leaves["w_obs"]) \
+        + leaves["b_obs"]
+    return e + torch.einsum("bnkx,nkxf->bnf", leaves["h"][:, consts.idx],
+                            w_msg)
 
 
-@pytest.mark.parametrize("B", [1, 37])
-@pytest.mark.parametrize("graph", list(GRAPHS))
-def test_twin_matches_edge_sum_ops(graph, B):
+# each family's path through the kernel's wrapper, and its yardstick's
+# pre-activation; "dial_message": DIAL's call from given messages
+FAMILY = {"neurcomm": (tp.CommType.NEURCOMM, _neurcomm, _neurcomm_pre),
+          "dial": (tp.CommType.DIAL, _dial, _dial_pre),
+          "dial_message": (tp.CommType.DIAL, _message, _message_pre)}
+POLICIES = ("neurcomm", "dial")       # the families' paths from the carry
+
+
+def _leaves(params, inputs):
+    """Fresh leaves that take a gradient: h and the dense weights."""
+    return {k: v.clone().requires_grad_()
+            for k, v in dict(h=inputs["h"], **params).items()}
+
+
+def _grads(fn, spec, params, inputs):
+    """e and the gradients of sum(sin(e)) w.r.t. the carry and the dense
+    weights (through the packing)."""
+    leaves = _leaves(params, inputs)
+    e = fn(spec, leaves, inputs)
+    grads = torch.autograd.grad(torch.sin(e.float()).sum(),
+                                list(leaves.values()))
+    return e.detach(), dict(zip(leaves, grads))
+
+
+def _yardstick(pre):
+    return lambda *args: torch.relu(pre(*args))
+
+
+TWIN_CASES = [pytest.param(family, graph, B,
+                           id=(f"{graph}-{B}" if family == "neurcomm"
+                               else f"{family}-{graph}-{B}"))
+              for family in POLICIES for graph in GRAPHS for B in (1, 37)]
+
+
+@pytest.mark.parametrize("family,graph,B", TWIN_CASES)
+def test_twin_matches_edge_sum_ops(family, graph, B):
     """The twin through its autograd.Function (the CPU path of ``_embed``)
     against the ops it replaces, in f32: forward 1e-6, every gradient
-    1e-5; the carry's rows that are done get no gradient."""
+    1e-5; the carry's rows that are done get no gradient. DIAL (no
+    fingerprint term, its messages unmasked) also against its einsums over
+    dense blocks, and its bias b_dial takes the gradient of the done rows,
+    whose messages are the bias alone."""
+    comm, kernel, pre = FAMILY[family]
     adj = GRAPHS[graph]()
-    spec, params, inputs = _case(adj, B, n_a=6 if graph == "monaco28" else 5)
-    got, g_got = _grads(_twin, spec, params, inputs)
-    want, g_want = _grads(_yardstick(spec), spec, params, inputs)
-    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
-                               atol=1e-6)
+    spec, params, inputs = _case(adj, B, n_a=6 if graph == "monaco28" else 5,
+                                 comm=comm)
+    got, g_got = _grads(kernel, spec, params, inputs)
+    wants = [_grads(_yardstick(pre), spec, params, inputs)]
+    if comm is tp.CommType.DIAL:
+        dense = dataclasses.replace(spec, sparse_comm=False)
+        wants.append(_grads(kernel, dense, params, inputs))
+    for want, g_want in wants:
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                                   atol=1e-6)
+        for name in g_want:
+            np.testing.assert_allclose(g_got[name].numpy(),
+                                       g_want[name].numpy(), rtol=1e-5,
+                                       atol=1e-5, err_msg=name)
     assert float(got.abs().sum()) > 0 and bool((got == 0).any())
-    for name in g_want:
-        np.testing.assert_allclose(g_got[name].numpy(), g_want[name].numpy(),
-                                   rtol=1e-5, atol=1e-5, err_msg=name)
     done = inputs["done"] > 0
     assert done.any() == (B > 1) and not g_got["h"][done].any()
     assert g_got["h"][~done].abs().sum() > 0
+    if comm is tp.CommType.DIAL:
+        ended = dict(inputs, done=torch.ones_like(inputs["done"]))
+        _, g_ended = _grads(kernel, spec, params, ended)
+        assert not g_ended["h"].any() and not g_ended["w_dial"].any()
+        assert g_ended["b_dial"].abs().sum() > 0
 
 
 def _off(got, want, tol):
@@ -179,64 +285,58 @@ def _off(got, want, tol):
     return (got - want).abs() > tol + tol * want.abs()
 
 
-def _against_ops(spec, params, inputs, tol):
-    """``comm_embed`` (the kernel on a card, the twin on the CPU) against
-    the ops it replaces: e, and the gradients of sum(e * cot) w.r.t. the
-    carry and the four dense weights (through the packing). The ops round each product and each
-    add, the kernel once, so a pre-activation near 0 can take the other sign
-    there, and a relu mask that differs moves the gradient of every sender
-    its receiver row reads. Hence: every gradient meets the bar against the
-    ops' gradients taken under the kernel's relu mask; the masks differ only
-    where the ops' pre-activation lies within the bar of 0; and against the
-    ops' own gradients, dh misses the bar only in a (row, sender) whose
-    receivers' masks differ. Returns (entries whose masks differ, elements
-    of dh off the bar under the ops' own mask)."""
-    obs, fp, done = inputs["obs"], inputs["fp"], inputs["done"]
-
-    def fresh():
-        """Leaves h and the dense weights; the embedding's arguments."""
-        leaves = {k: v.clone().requires_grad_() for k, v in
-                  dict(h=inputs["h"], **params).items()}
-        consts, w_fp, w_msg = _packed(spec, leaves, obs.device)
-        return consts, list(leaves.values()), (
-            obs, fp, leaves["h"], done, leaves["w_obs"], leaves["b_obs"],
-            w_fp, w_msg)
-
-    consts, mine, args = fresh()
-    e = ce.comm_embed(*args, consts.nbr, consts.rev)
+def _against_ops(spec, params, inputs, tol, family="neurcomm"):
+    """``family``'s path through ``comm_embed`` (the kernel on a card, the
+    twin on the CPU) against the ops it replaces: e, and the gradients of
+    sum(e * cot) w.r.t. the carry and the dense weights (through the
+    packing). The ops round each product and each add, the kernel once, so a
+    pre-activation near 0 can take the other sign there, and a relu mask
+    that differs moves the gradient of every sender its receiver row reads.
+    Hence: every gradient meets the bar against the ops' gradients taken
+    under the kernel's relu mask; the masks differ only where the ops'
+    pre-activation lies within the bar of 0; and against the ops' own
+    gradients, dh misses the bar only in a (row, sender) whose receivers'
+    masks differ. Returns (entries whose masks differ, elements of dh off
+    the bar under the ops' own mask)."""
+    _, kernel, pre_fn = FAMILY[family]
+    mine = _leaves(params, inputs)
+    e = kernel(spec, mine, inputs)
     g = torch.Generator(device=e.device).manual_seed(7)
     cot = torch.randn(e.shape, device=e.device, generator=g).to(e.dtype)
     dot = lambda x: (x.float() * cot.float()).sum()
-    got = torch.autograd.grad(dot(e), mine)
-    _, ops, args = fresh()
-    pre = _edge_sum_pre(spec, consts, *args)
+    got = torch.autograd.grad(dot(e), list(mine.values()))
+    ops = _leaves(params, inputs)
+    pre = pre_fn(spec, ops, inputs)
     on = e.detach() > 0
     assert not _off(e, torch.relu(pre), tol).any(), "e"
     flips = on != (pre.detach() > 0)
     assert not _off(pre.detach()[flips], torch.zeros(()), tol).any()
-    want = torch.autograd.grad(dot(torch.where(on, pre, 0.0)), ops,
-                               retain_graph=True)
-    for name, a, b in zip(("h", "w_obs", "b_obs", "w_fp", "w_msg"), got,
-                          want):
+    want = torch.autograd.grad(dot(torch.where(on, pre, 0.0)),
+                               list(ops.values()), retain_graph=True)
+    for name, a, b in zip(ops, got, want):
         assert a.dtype == e.dtype, name
         bad = _off(a, b, tol)
         assert not bad.any(), (f"{name}: {int(bad.sum())} elements off by "
                                f"up to {float((a - b).abs().max()):.3e}")
-    own = torch.autograd.grad(dot(torch.relu(pre)), ops[0])[0]
-    moved = flips.any(-1).float() @ consts.adj[:, :, 0, 0].to(e.device)
+    own = torch.autograd.grad(dot(torch.relu(pre)), ops["h"])[0]
+    adj = torch.as_tensor(spec.adj(), device=e.device)
+    moved = flips.any(-1).float() @ adj
     bad = _off(got[0], own, tol)
     assert not bad[moved == 0].any()
     return int(flips.sum()), int(bad.sum())
 
 
-@pytest.mark.parametrize("graph", list(GRAPHS))
-def test_twin_matches_edge_sum_ops_in_bf16(graph):
+@pytest.mark.parametrize("family,graph", [
+    pytest.param(family, graph, id=(graph if family == "neurcomm"
+                                    else f"{family}-{graph}"))
+    for family in POLICIES for graph in GRAPHS])
+def test_twin_matches_edge_sum_ops_in_bf16(family, graph):
     """The twin through its Function against the ops in bf16 at B=37 and
     the bf16 bar 0.05 (``_against_ops``)."""
     adj = GRAPHS[graph]()
     spec, params, inputs = _case(adj, 37, n_a=6 if graph == "monaco28" else 5,
-                                 dtype=torch.bfloat16)
-    _against_ops(spec, params, inputs, 0.05)
+                                 dtype=torch.bfloat16, comm=FAMILY[family][0])
+    _against_ops(spec, params, inputs, 0.05, family)
 
 
 def test_twin_backward_zeroes_empty_slots():
@@ -309,8 +409,8 @@ OPS_CASES = [(tp.CommType.NEURCOMM, False, False),
 @pytest.mark.parametrize("comm,sparse,nobs", OPS_CASES + [
     (tp.CommType.NEURCOMM, True, False)])
 def test_embed_dispatch(monkeypatch, comm, sparse, nobs):
-    """``_embed`` takes the kernel's wrapper for packed NEURCOMM without
-    ``neighbor_obs`` only; dense comm, FP, DIAL, COMMNET, NONE and
+    """``_embed`` takes the kernel's wrapper for packed NEURCOMM and DIAL
+    without ``neighbor_obs`` only; dense comm, FP, COMMNET, NONE and
     ``neighbor_obs`` keep their ops, and ``policy_step_batched`` gives the
     same step either way it is asked (``done`` folded in, or a masked
     carry)."""
@@ -329,7 +429,8 @@ def test_embed_dispatch(monkeypatch, comm, sparse, nobs):
     fp = torch.full((4, 9, 4), 0.25)
     done = torch.tensor([0.0, 1.0, 0.0, 1.0])
     e = tp._embed(spec, params, h, obs, fp, consts, done)
-    engaged = comm is tp.CommType.NEURCOMM and sparse and not nobs
+    engaged = comm in (tp.CommType.NEURCOMM, tp.CommType.DIAL) \
+        and sparse and not nobs
     assert len(calls) == int(engaged)
     masked = tp._embed(spec, params, h * (1 - done)[:, None, None], obs, fp,
                        consts)
@@ -354,11 +455,14 @@ def test_wrapper_refuses_obs_with_gradient_and_detaches_fp():
 
 def test_kernel_variant_and_shared_memory():
     """``tc`` where the LSTM cell takes its tensor-core kernel and the
-    [obs | 1 | fp] columns fit 64; at the flagship's sizes one forward
-    block and two backward blocks fit an SM; float32, odd widths, wide
-    fingerprints and large in-degrees go to ``general``."""
+    [obs | 1 | fp] columns fit 64 (DIAL's call has no fp columns); at the
+    flagship's sizes one forward block and two backward blocks fit an SM;
+    float32, odd widths, wide fingerprints and large in-degrees go to
+    ``general``."""
     bf, f32 = torch.bfloat16, torch.float32
     assert ce.kernel_variant(bf, 12, 5, 4, 64, 64, 4) == "tc"
+    assert ce.kernel_variant(bf, 12, 0, 4, 64, 64, 4) == "tc"
+    assert ce.kernel_variant(f32, 12, 0, 4, 64, 64, 4) == "general"
     assert ce.kernel_variant(bf, 12, 6, 4, 64, 64, 4) == "tc"
     assert ce.kernel_variant(bf, 12, 5, 4, 16, 16, 4) == "tc"
     assert ce.kernel_variant(f32, 12, 5, 4, 64, 64, 4) == "general"
@@ -372,6 +476,10 @@ def test_kernel_variant_and_shared_memory():
     assert bwd == (4 * 64 * 72 * 2 + 3 * (64 * 72 * 2 + 64 * 72 * 2 + 128)
                    + 64 * 64 * 4 + 16 + 56)
     assert fwd <= ce._MAX_SMEM < 2 * fwd and 2 * bwd <= ce._MAX_SMEM
+    fwd, bwd = ce.tc_shared_bytes(12, 0, 4, 64, 64, 4)      # DIAL's
+    assert fwd == (272 * 72 * 2 + 3 * (64 * 280 * 2 + 64 * 72 * 2 + 128)
+                   + 16 + 80)
+    assert fwd <= ce._MAX_SMEM and 2 * bwd <= ce._MAX_SMEM
     assert ce.tc_splits(768, 25, 132) == 5 and ce.tc_splits(30, 25, 132) == 1
     assert ce.dh_splits(768, 4) == 8 and ce.dh_splits(10, 4) == 1
 
@@ -390,7 +498,8 @@ def test_wrapper_refuses_other_devices_and_dtypes():
 # ---------------------------------------------------------------- the card
 
 CARD_CASES = [
-    # (name, graph, B, n_s, n_a, width, dtype, variant)
+    # (name, graph, B, n_s, n_a, width, dtype, variant); n_a 0: DIAL's
+    # call (no fingerprint term, its messages unmasked)
     ("flagship", "grid25", 768, 12, 5, 64, torch.bfloat16, "tc"),
     ("monaco_768", "monaco28", 768, 12, 6, 64, torch.bfloat16, "tc"),
     ("ragged_k5", "random_k5", 37, 7, 3, 32, torch.bfloat16, "tc"),
@@ -399,18 +508,34 @@ CARD_CASES = [
     ("ragged_k5_f32", "random_k5", 37, 7, 3, 16, torch.float32, "general"),
     ("flagship_bf16_general", "grid25", 100, 12, 5, 64, torch.bfloat16,
      "general"),
+    ("dial_flagship", "grid25", 768, 12, 0, 64, torch.bfloat16, "tc"),
+    ("dial_ragged_k5", "random_k5", 37, 7, 0, 32, torch.bfloat16, "tc"),
+    ("dial_eval_b1", "grid25", 1, 12, 0, 64, torch.float32, "general"),
+    ("dial_flagship_f32", "grid25", 768, 12, 0, 64, torch.float32,
+     "general"),
 ]
 CARD_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (0.05, 0.05)}
 
 
 def _card_args(graph, B, n_s, n_a, width, dtype):
-    spec, params, inputs = _case(GRAPHS[graph](), B, n_s=n_s, n_a=n_a,
-                                 width=width, dtype=dtype, device="cuda")
-    consts, w_fp, w_msg = _packed(spec, params, "cuda")
-    fwd = (inputs["obs"], inputs["fp"], inputs["h"], inputs["done"],
-           params["w_obs"], params["b_obs"], w_fp, w_msg, consts.nbr,
-           consts.rev)
-    return fwd
+    """The forward's arguments on the card; with ``n_a`` 0 DIAL's: its
+    messages from the masked carry through the head, no fp, done or
+    w_fp."""
+    if n_a:
+        spec, params, inputs = _case(GRAPHS[graph](), B, n_s=n_s, n_a=n_a,
+                                     width=width, dtype=dtype, device="cuda")
+        consts, w_fp, w_msg = _packed(spec, params, "cuda")
+        return (inputs["obs"], inputs["fp"], inputs["h"], inputs["done"],
+                params["w_obs"], params["b_obs"], w_fp, w_msg, consts.nbr,
+                consts.rev)
+    spec, params, inputs = _case(GRAPHS[graph](), B, n_s=n_s, width=width,
+                                 dtype=dtype, device="cuda",
+                                 comm=tp.CommType.DIAL)
+    p, consts = _dial_params(spec, dict(params, h=inputs["h"]))
+    h = inputs["h"] * (1.0 - inputs["done"])[:, None, None]
+    msg = torch.einsum("bmh,mhd->bmd", h, p.w_dial.w) + p.w_dial.b
+    return (inputs["obs"], None, msg, None, p.w_obs.w, p.w_obs.b, None,
+            p.w_msg, consts.nbr, consts.rev)
 
 
 def _close(got, want, tol, what):
@@ -426,7 +551,8 @@ def _close(got, want, tol, what):
 def test_cuda_kernels_match_twin(case):
     """Each kernel against the twin on the card, forward and backward,
     with the variant that the rule (or the case) gives; the launch counts
-    move by one each; two backward calls are bitwise equal."""
+    move by one each, under DIAL's keys for DIAL's call; two backward calls
+    are bitwise equal."""
     name, graph, B, n_s, n_a, width, dtype, variant = case
     fwd = _card_args(graph, B, n_s, n_a, width, dtype)
     forced = {} if variant == ce.kernel_variant(
@@ -448,12 +574,16 @@ def test_cuda_kernels_match_twin(case):
     torch.cuda.synchronize()
     for what, a, b, c in zip(("dh", "dw_obs", "db_obs", "dw_fp", "dw_msg"),
                              got_b, want_b, again):
+        if b is None:
+            assert a is None and c is None and fp is None, what
+            continue
         _close(a, b, tol_b, f"{name} {what}")
         assert torch.equal(a, c), f"{name} {what} differs between calls"
     moved = {k: v - before[k] for k, v in ce.LAUNCHES.items()
              if v != before[k]}
-    assert moved == {"comm_embed_fwd": 1, f"comm_embed_fwd_{variant}": 1,
-                     "comm_embed_bwd": 2, f"comm_embed_bwd_{variant}": 2}
+    base = "comm_embed" if n_a else "comm_embed_dial"
+    assert moved == {f"{base}_fwd": 1, f"{base}_fwd_{variant}": 1,
+                     f"{base}_bwd": 2, f"{base}_bwd_{variant}": 2}
 
 
 @needs_cuda
@@ -462,21 +592,72 @@ def test_cuda_shared_memory_mirror():
     own."""
     lib = ce._kernels()
     for dims in ((12, 5, 4, 64, 64, 4), (12, 6, 4, 64, 64, 4),
-                 (7, 3, 5, 32, 32, 9)):
+                 (7, 3, 5, 32, 32, 9), (12, 0, 4, 64, 64, 4)):
         assert ce.tc_shared_bytes(*dims) == (lib.comm_embed_smem(0, *dims),
                                              lib.comm_embed_smem(1, *dims))
 
 
 @needs_cuda
-@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 0.05),
-                                       (torch.float32, 1e-4)],
-                         ids=["bf16_tc", "f32_general"])
-def test_cuda_function_matches_edge_sum_ops(dtype, tol):
+@pytest.mark.parametrize("family,dtype,tol", [
+    pytest.param(family, dtype, tol, id=("" if family == "neurcomm"
+                                         else f"{family}_") + name)
+    for family in POLICIES
+    for dtype, tol, name in ((torch.bfloat16, 0.05, "bf16_tc"),
+                             (torch.float32, 1e-4, "f32_general"))])
+def test_cuda_function_matches_edge_sum_ops(family, dtype, tol):
     """Through the autograd.Function on the card at the flagship's shape
     (B=768, the 5x5 grid, widths 64), against the ops it replaces
     (``_against_ops``): bf16 on the tensor cores at the bf16 bar, f32 on
-    the CUDA cores with TF32 off at 1e-4."""
+    the CUDA cores with TF32 off at 1e-4; NeurComm's call and DIAL's. For
+    DIAL the kernel's own inputs (its messages and weights) meet the bar,
+    and so does the whole chain through the message head in f32 and, in
+    bf16, the carry's gradient; the head's weight gradients sum the message
+    gradient over 768 rows, which the ops round once a slot and the kernel
+    once, so in bf16 they part from the ops' by the ops' own rounding
+    (up to 0.25 in a few dozen elements): there the kernel's path is held
+    to be no farther from float32 than the ops' path."""
     assert not torch.backends.cuda.matmul.allow_tf32
     spec, params, inputs = _case(_grid_adj(), 768, width=64, dtype=dtype,
-                                 device="cuda")
-    _against_ops(spec, params, inputs, tol)
+                                 device="cuda", comm=FAMILY[family][0])
+    if family == "neurcomm":
+        _against_ops(spec, params, inputs, tol)
+        return
+    p, _ = _dial_params(spec, dict(params, h=inputs["h"]))
+    h = inputs["h"] * (1.0 - inputs["done"])[:, None, None]
+    msg = torch.einsum("bmh,mhd->bmd", h, p.w_dial.w) + p.w_dial.b
+    _against_ops(spec, {k: params[k] for k in ("w_obs", "b_obs", "w_msg")},
+                 dict(inputs, h=msg.detach()), tol, "dial_message")
+    if dtype == torch.float32:
+        _against_ops(spec, params, inputs, tol, "dial")
+    else:
+        _head_nearer_float32(spec, params, inputs, tol)
+
+
+def _head_nearer_float32(spec, params, inputs, tol):
+    """DIAL's chain in bf16: the carry's gradient meets the bar against
+    the ops; the carry's and the head's gradients are, in RMS, no farther
+    from float32 (the ops' chain on the same bf16 values, under the
+    kernel's relu mask) than the ops' bf16 path is."""
+    _, kernel, pre_fn = FAMILY["dial"]
+    mine = _leaves(params, inputs)
+    e = kernel(spec, mine, inputs)
+    g = torch.Generator(device=e.device).manual_seed(7)
+    cot = torch.randn(e.shape, device=e.device, generator=g).to(e.dtype)
+    dot = lambda x: (x.float() * cot.float()).sum()
+    on = e.detach() > 0
+    got = dict(zip(mine, torch.autograd.grad(dot(e), list(mine.values()))))
+    ops = _leaves(params, inputs)
+    want = dict(zip(ops, torch.autograd.grad(
+        dot(torch.where(on, pre_fn(spec, ops, inputs), 0.0)),
+        list(ops.values()))))
+    f32 = lambda d: {k: v.float() for k, v in d.items()}
+    ref = _leaves(f32(params), f32(inputs))
+    truth = dict(zip(ref, torch.autograd.grad(
+        dot(torch.where(on, pre_fn(spec, ref, f32(inputs)), 0.0)),
+        list(ref.values()))))
+    assert not _off(got["h"], want["h"], tol).any(), "h"
+    rms = lambda a, b: float((a.float() - b).pow(2).mean().sqrt())
+    for name in ("h", "w_dial", "b_dial"):
+        assert got[name].abs().sum() > 0, name
+        assert rms(got[name], truth[name]) <= rms(want[name], truth[name]), \
+            name

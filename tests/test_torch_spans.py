@@ -6,8 +6,10 @@ On the CPU a recording stand-in takes the place of the mark's launch (as
 ``GraphedStep`` takes a stand-in graph and capture): the marks of one
 update, on the fused and the replay path, at T = 120 and at a small T, with
 ``remat`` on and off and with ``axis_name``, run in the layout's order and
-nest in their parents; the rings' arithmetic on synthetic stamps (durations,
-self times, the sampled spans' scaling, the slot wrapping past the ring);
+nest in their parents (``comm`` in ``policy``, marked once a sampled step,
+never in the ``remat`` recompute); the rings' arithmetic on synthetic
+stamps (durations, self times, the sampled spans' scaling, the slot
+wrapping past the ring);
 the Trainer's read of durations alone, without the clock; the clock's
 offset against a fake clock; ``record_function`` only while a
 profiler runs; the Trainer's log row.
@@ -16,7 +18,8 @@ On a card (``needs_cuda``; ``python -m pytest --noconftest -q
 tests/test_torch_spans.py -k cuda``): a profiled replay runs exactly the
 layout's mark kernels, by name; the stamps are monotone; the graphed update
 with its marks equals the eager one bit for bit; the platoon's env span is
-above 0. This file imports nothing of JAX.
+above 0; a captured DIAL update takes the comm-embedding kernels under
+DIAL's launch keys. This file imports nothing of JAX.
 """
 
 import contextlib
@@ -61,12 +64,13 @@ def one_thread():
     torch.set_num_threads(n)
 
 
-def _fns(T, device="cpu", env="cacc", jit=True, dp=False, **model_kw):
+def _fns(T, device="cpu", env="cacc", jit=True, dp=False, agent="ma2c_nc",
+         **model_kw):
     e = (CACCEnv(EnvConfig(**CACC), device=device) if env == "cacc"
          else LargeGridEnv(EnvConfig(**GRID), device=device))
     mcfg = ModelConfig(**dict(TINY, batch_size=T, **model_kw))
     return make_a2c(e, mcfg, TrainConfig(total_step=10 ** 6),
-                    agent="ma2c_nc", jit=jit, device=device,
+                    agent=agent, jit=jit, device=device,
                     axis_name="data" if dp else None)
 
 
@@ -99,9 +103,11 @@ LAYOUT_CASES = [(T, fused, remat) for T in (120, 8)
 @pytest.mark.parametrize("T,fused,remat", LAYOUT_CASES)
 def test_marks_of_one_update_run_in_the_layout(T, fused, remat):
     """One ``train_step`` launches exactly the layout's marks in its order,
-    on either gradient path, with ``remat`` or without: none runs inside
-    the checkpoint, whose recompute would run it again; only the last mark
-    advances the slot. Without a graph there are no graph marks."""
+    on either gradient path, with ``remat`` or without: the checkpoint's
+    recompute runs none again (the ``comm`` marks inside the forward run
+    for the forward alone: one begin and one end a sampled step, none on
+    the other steps); only the last mark advances the slot. Without a
+    graph there are no graph marks."""
     fns = _fns(T, fused_grad=fused, remat=remat)
     layout = fns.spans.layout
     seen = _record(fns.spans)
@@ -111,9 +117,13 @@ def test_marks_of_one_update_run_in_the_layout(T, fused, remat):
     assert [c for _, c, _ in seen] == list(range(len(layout.marks)))
     assert [a for _, _, a in seen] == [False] * (len(seen) - 1) + [True]
     n = len(sampled_steps(T))
-    assert len(seen) == 10 + 4 * n    # 70 at T = 120, 72 with a graph
+    assert len(seen) == 10 + 6 * n    # 100 at T = 120, 102 with a graph
     assert layout.outer == "update" and "graph" not in layout.spans
     assert "allreduce" not in layout.spans
+    names = [k for k, _, _ in seen]
+    comm = [i for i, k in enumerate(names) if k.startswith("span_comm_")]
+    assert len(comm) == 2 * n
+    assert max(comm) < names.index("span_rollout_end")
 
 
 def test_allreduce_marks_only_under_axis_name():
@@ -150,11 +160,13 @@ def _intervals(marks):
                                              (False, False)])
 def test_spans_nest_in_their_parents(graph, allreduce):
     """Every span's marks lie inside its parent's; a sampled span's
-    samples inside the one parent or the same sample of ``step``; the
-    outermost span holds every mark. ``policy`` runs from a step's begin
-    to its env's begin."""
+    samples inside the one parent or the same sample of its sampled
+    parent; the outermost span holds every mark. ``policy`` runs from a
+    step's begin to its env's begin, and holds ``comm``."""
     layout = Layout(120, graph, allreduce)
     iv = _intervals(layout.marks)
+    for k in range(len(layout.samples)):
+        iv[("policy", k)] = [iv[("step", k)][0], iv[("env", k)][0]]
     assert iv[(layout.outer, None)] == [0, len(layout.marks) - 1]
     for (span, k), (b, e) in iv.items():
         assert b < e
@@ -162,14 +174,17 @@ def test_spans_nest_in_their_parents(graph, allreduce):
         if parent is None:
             assert span == layout.outer
             continue
-        pk = k if parent == "step" else None
+        pk = k if parent in spans_mod.SAMPLED else None
         pb, pe = iv[(parent, pk)]
-        assert pb < b and e < pe, (span, k, parent)
+        # ``policy`` begins with its step
+        assert (pb == b if span == "policy" else pb < b) and e < pe, (
+            span, k, parent)
     assert layout.spans == (["graph"] if graph else []) + [
-        "update", "rollout", "step", "policy", "env", "returns", "backward"] \
-        + (["allreduce"] if allreduce else []) + ["optimizer"]
+        "update", "rollout", "step", "policy", "comm", "env", "returns",
+        "backward"] + (["allreduce"] if allreduce else []) + ["optimizer"]
     assert layout.parent("update") == ("graph" if graph else None)
-    assert len(layout.marks) == 10 + 60 + 2 * graph + 2 * allreduce
+    assert layout.parent("comm") == "policy"
+    assert len(layout.marks) == 10 + 90 + 2 * graph + 2 * allreduce
 
 
 def test_graph_marks_are_captured_around_the_update():
@@ -233,7 +248,8 @@ def _synthetic(layout, rows, done, base=10 ** 12):
 
 def test_durations_self_times_and_scaling():
     """Durations from the stamps; a sampled span scaled by T over its
-    samples (15 at T = 120); each self time its span less its children."""
+    samples (15 at T = 120); each self time its span less its children
+    (``policy`` less ``comm``)."""
     layout = Layout(120, graph=True, allreduce=False)
     row = _synthetic(layout, 1, 1)[0]
     d = layout.durations_ns(row[None])
@@ -241,9 +257,11 @@ def test_durations_self_times_and_scaling():
     dur = dict(zip(layout.spans, d[0]))
     n = 15
     assert dur["env"] == pytest.approx(n * 5000 * 120 / n)
-    assert dur["policy"] == pytest.approx(n * 1000 * 120 / n)
-    # a step: begin -> env begin -> env end -> step end
-    assert dur["step"] == pytest.approx(n * 7000 * 120 / n)
+    # a step: begin -> comm begin -> comm end -> env begin -> env end ->
+    # step end
+    assert dur["comm"] == pytest.approx(n * 1000 * 120 / n)
+    assert dur["policy"] == pytest.approx(n * 3000 * 120 / n)
+    assert dur["step"] == pytest.approx(n * 9000 * 120 / n)
     assert dur["backward"] == 7000
     assert dur["update"] == row[-2] - row[1]
     assert dur["graph"] == row[-1] - row[0]
@@ -255,7 +273,8 @@ def test_durations_self_times_and_scaling():
         dur["update"] - sum(dur[k] for k in ("rollout", "returns",
                                              "backward", "optimizer")))
     assert own["graph"] == dur["graph"] - dur["update"] == 2000
-    assert own["env"] == dur["env"] and own["policy"] == dur["policy"]
+    assert own["env"] == dur["env"] and own["comm"] == dur["comm"]
+    assert own["policy"] == pytest.approx(dur["policy"] - dur["comm"])
 
 
 def test_read_rows_wraps_the_slot_and_attributes_the_gaps():
@@ -530,3 +549,29 @@ def test_cuda_platoon_env_span_is_above_zero():
         assert r["clock_uncertainty_ms"] >= 0
     assert fns.spans.means(2)["env"] > 0
     assert spans_mod.CLOCK_BRACKETS == 5
+
+
+@needs_cuda
+def test_cuda_dial_update_takes_the_comm_embedding_kernels():
+    """A DIAL update with ``remat`` at bf16 widths of 16 over packed lists,
+    captured into its graph: the wrappers count the capture's warm-up and
+    the capture, each 2T+1 forward and T backward calls under DIAL's
+    ``LAUNCHES`` keys and none under NeurComm's; its ``comm`` span reads."""
+    from deeprl_network_tpu_torch.ops import comm_embed as ce
+    T = 8
+    fns = _fns(T, "cuda", env="grid", agent="ma2c_dial", num_envs=4,
+               num_fc=16, num_lstm=16, compute_dtype="bfloat16",
+               sparse_comm=True, remat=True)
+    ts = fns.init_state(0)
+    before = dict(ce.LAUNCHES)
+    ts, _ = fns.train_step(ts)
+    ts, _ = fns.train_step(ts)
+    torch.cuda.synchronize()
+    moved = {k: v - before[k] for k, v in ce.LAUNCHES.items()
+             if v != before[k]}
+    assert moved == {"comm_embed_dial_fwd": 2 * (2 * T + 1),
+                     "comm_embed_dial_fwd_tc": 2 * (2 * T + 1),
+                     "comm_embed_dial_bwd": 2 * T,
+                     "comm_embed_dial_bwd_tc": 2 * T}
+    got = fns.spans.read(2)
+    assert len(got) == 2 and all(r["spans"]["comm"]["ms"] > 0 for r in got)
