@@ -42,10 +42,14 @@ Phases (any failure raises, exits non-zero and prints no result line):
      f32; DIAL's call (no fingerprint term, its messages unmasked) at the
      flagship and at B=1 in f32, under DIAL's launch keys; times at the
      flagship, Monaco-28, B=1 and DIAL's two (warm, cold, the host's call,
-     the twin, the PyTorch ops it replaced, the bound and its share); from
+     the twin, the PyTorch ops it replaced, the bound and its share); DIAL's
+     message head (``ops/csrc/dial_head.cu``) against its twin the same way
+     at DIAL's flagship (B=768, bf16, ``tc``) and at B=1 in f32
+     (``general``), timed beside the ops it replaced (the mask, the einsum,
+     the bias add and the messages' copy), with its source's nvcc time; from
      here on every phase that runs MA2C_NC or MA2C_DIAL over packed lists
      asserts its launches beside the cell's: one forward and one backward
-     each;
+     each, and as many of the head's for MA2C_DIAL;
   5. reference: a small f32 train step on the card against the same step on
      the CPU (plain twins, held against the JAX package by the CPU tests),
      and the same at num_fc=64, num_lstm=256 (a cell wider than 256);
@@ -892,6 +896,141 @@ def embed_times(spec, fwd_args, bwd_args, flush):
     return out
 
 
+HEAD_SOURCE = "deeprl_network_tpu_torch/ops/csrc/dial_head.cu"
+HEAD_REPLACES = ("none: XLA fuses deeprl_network_tpu/models/policies.py "
+                 "_embed's message-head einsum and bias add")
+# (name, B, dtype): DIAL's flagship and its eval or record step at B=1 on the
+# 5x5 grid (N=25, n_lstm = n_msg = 64)
+HEAD_CASES = (("dial_flagship", 768, "bfloat16"),
+              ("dial_eval_b1", 1, "float32"))
+
+
+def head_args(B, dtype_name, seed=0):
+    """(h, done, w, b, dm) of DIAL's message head on the card: the grid's
+    DIAL head weights at the init's scale with a bias drawn beside them,
+    numpy-seeded carry rows, a third of the rows done, a normal draw for
+    the messages' gradient."""
+    import numpy as np
+    import torch
+    from deeprl_network_tpu_torch.config import EnvConfig, ModelConfig
+    from deeprl_network_tpu_torch.envs.grid import LargeGridEnv
+    from deeprl_network_tpu_torch.models.policies import init_policy_params
+    from deeprl_network_tpu_torch.utils.rollout import make_policy_spec
+    env = LargeGridEnv(EnvConfig(scenario="large_grid"), device="cpu")
+    spec = make_policy_spec(env.spec, ModelConfig(sparse_comm=True),
+                            "ma2c_dial")
+    dt = getattr(torch, dtype_name)
+    p = init_policy_params(torch.Generator().manual_seed(seed), spec)
+    rng = np.random.default_rng(seed)
+    t = lambda *shape, scale=1.0: torch.tensor(
+        (rng.standard_normal(shape) * scale).astype(np.float32),
+        device="cuda").to(dt)
+    n, H, D = spec.n_agent, spec.n_lstm, spec.n_msg
+    done = torch.tensor((rng.random(B) < 0.3).astype(np.float32),
+                        device="cuda").to(dt)
+    # W contiguous, as the update's graph holds it (the orthogonal init
+    # leaves it column-major, which the wrapper would copy each call)
+    return (t(B, n, H, scale=0.5), done,
+            p.w_dial.w.to("cuda", dt).contiguous(), t(n, D, scale=0.1),
+            t(B, n, D, scale=0.1))
+
+
+def head_bytes_flops(h, w, dtype):
+    """Bytes each head kernel must move (inputs read once, outputs written
+    once) and its products' operations: the forward reads h, done, W and
+    the bias and writes m; the backward reads h, done, W and dm and writes
+    dh, dW and the bias gradient."""
+    import torch
+    es = torch.tensor([], dtype=dtype).element_size()
+    (B, N, H), D = h.shape, w.shape[-1]
+    rows, weights = B * N * (H + D) * es, (N * H * D + N * D) * es
+    fwd = (rows + B * es + weights, 2 * B * N * H * D)
+    bwd = (rows + B * N * H * es + B * es + 2 * N * H * D * es + N * D * es,
+           4 * B * N * H * D)
+    return fwd, bwd
+
+
+def check_dial_head(card, build_s):
+    """DIAL's message head against its twins on the card at ``HEAD_CASES``,
+    forward and backward, the backward bitwise equal across two calls and
+    the launch counts asserted; times from graph replays (warm and cold),
+    the host's time a call, the twins', the PyTorch ops it replaced (the
+    mask, the einsum, the bias add and the copy of the messages into
+    [B, N, D] rows; the backward's entry: the forward with its autograd
+    backward, less the forward), and the bound. Returns the kernels line's
+    entries."""
+    import torch
+    from deeprl_network_tpu_torch.ops import dial_head as dh
+    t_phase = time.perf_counter()
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    entries = {}
+    for name, B, dt_name in HEAD_CASES:
+        h, done, w, b, dm = head_args(B, dt_name)
+        dt = h.dtype
+        variant = dh.kernel_variant(dt, h.shape[-1], w.shape[-1])
+        before = dict(dh.LAUNCHES)
+        m = dh.dial_head_fwd(h, done, w, b)
+        got = dh.dial_head_bwd(h, done, w, dm)
+        again = dh.dial_head_bwd(h, done, w, dm)
+        torch.cuda.synchronize()
+        err_f = max_err([m], [dh.dial_head_fwd_ref(h, done, w, b)],
+                        TOL[(dt_name, "fwd")], "m")
+        err_b = max_err(got, dh.dial_head_bwd_ref(h, done, w, dm),
+                        TOL[(dt_name, "bwd")], "dh,dw,db")
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"dial head {name}: the backward is not "
+                                 "deterministic")
+        moved = {k: v - before[k] for k, v in dh.LAUNCHES.items()
+                 if v != before[k]}
+        if moved != {"dial_head_fwd": 1, f"dial_head_fwd_{variant}": 1,
+                     "dial_head_bwd": 2, f"dial_head_bwd_{variant}": 2}:
+            raise AssertionError(f"dial head {name}: launch counts moved by "
+                                 f"{moved}, expected {variant}")
+        leaves = [x.clone().requires_grad_() for x in (h, w, b)]
+
+        def ops_fwd():
+            x = leaves[0] * (1.0 - done)[:, None, None]
+            return (torch.einsum("bmh,mhd->bmd", x, leaves[1])
+                    + leaves[2]).contiguous()
+
+        fwd = lambda: dh.dial_head_fwd(h, done, w, b)
+        bwd = lambda: dh.dial_head_bwd(h, done, w, dm)
+        row = {"shape": name, "B": B, "dtype": dt_name, "variant": variant,
+               "fwd_max_abs_err": err_f, "bwd_max_abs_err": err_b,
+               "build_s": build_s,
+               "fwd_ms": graph_ms(fwd), "fwd_cold_ms": graph_ms(fwd,
+                                                               flush=flush),
+               "fwd_call_ms": host_call_ms(fwd),
+               "fwd_plain_ms": graph_ms(lambda: dh.dial_head_fwd_ref(
+                   h, done, w, b), n=5),
+               "bwd_ms": graph_ms(bwd), "bwd_cold_ms": graph_ms(bwd,
+                                                               flush=flush),
+               "bwd_call_ms": host_call_ms(bwd),
+               "bwd_plain_ms": graph_ms(lambda: dh.dial_head_bwd_ref(
+                   h, done, w, dm), n=5)}
+        with torch.no_grad():
+            row["fwd_ops_ms"] = graph_ms(ops_fwd, n=5)
+        row["bwd_ops_ms"] = graph_ms(lambda: torch.autograd.grad(
+            ops_fwd(), leaves, dm), n=5) - row["fwd_ops_ms"]
+        (fb, ff), (bb, bf) = head_bytes_flops(h, w, dt)
+        row["fwd_bound_ms"], row["fwd_bound_by"] = bound(fb, ff, dt_name)
+        row["bwd_bound_ms"], row["bwd_bound_by"] = bound(bb, bf, dt_name)
+        row.update(fwd_bytes=fb, fwd_flops=ff, bwd_bytes=bb, bwd_flops=bf,
+                   card=card)
+        for d in ("fwd", "bwd"):
+            row[f"{d}_share"] = row[f"{d}_bound_ms"] / row[f"{d}_ms"]
+        log("dial_head_check " + json.dumps(row))
+        suffix = "" if variant == "tc" else "_general"
+        for d, err in (("fwd", err_f), ("bwd", err_b)):
+            entries[f"dial_head_{d}{suffix}"] = dict(
+                max_abs_err=err, ms=row[f"{d}_ms"],
+                plain_ms=row[f"{d}_plain_ms"],
+                bound_ms=row[f"{d}_bound_ms"], bound_by=row[f"{d}_bound_by"],
+                library_ms=None, ops_ms=row[f"{d}_ops_ms"])
+    log(f"dial head: phase {time.perf_counter() - t_phase:.1f} s")
+    return entries
+
+
 def make_flagship(device, env_kw=None, agent="ma2c_nc", jit=True,
                   **overrides):
     """The flagship configuration through make_a2c for ``agent``;
@@ -934,12 +1073,13 @@ def make_cacc(path, device, env_kw=None, **overrides):
 
 
 def wrapper_counts():
-    """Every wrapper's launch counts: the LSTM cell, the env step and the
-    comm embedding."""
+    """Every wrapper's launch counts: the LSTM cell, the env step, the
+    comm embedding and DIAL's message head."""
     from deeprl_network_tpu_torch.ops import comm_embed as ce
+    from deeprl_network_tpu_torch.ops import dial_head as dh
     from deeprl_network_tpu_torch.ops import lstm_cell as lc
     from deeprl_network_tpu_torch.ops import network_env as ne
-    return (lc.LAUNCHES, ne.LAUNCHES, ce.LAUNCHES)
+    return (lc.LAUNCHES, ne.LAUNCHES, ce.LAUNCHES, dh.LAUNCHES)
 
 
 def zero_counts():
@@ -965,8 +1105,9 @@ def expect_counts(what, fwd, bwd, variant, env, got=None, embed=False):
     """Raise unless ``got`` holds ``fwd`` forward and ``bwd`` backward cell
     launches, all of ``variant``, and ``env`` env-step launches; with
     ``embed`` (True: MA2C_NC over packed neighbour lists; "dial": MA2C_DIAL,
-    under DIAL's keys) as many comm-embedding launches of the same variant
-    as cell launches, else none; returns the counts. ``got`` defaults to
+    under DIAL's keys, and as many of its message head's) as many
+    comm-embedding launches of the same variant as cell launches, else
+    none; returns the counts. ``got`` defaults to
     the wrappers' counts since ``zero_counts()``: launches issued from
     Python or captured into a CUDA graph, whose replays they do not see;
     ``on_card`` gives what ran, counted by kernel name (``card_view``)."""
@@ -976,8 +1117,9 @@ def expect_counts(what, fwd, bwd, variant, env, got=None, embed=False):
                  "network_env_step": env})
     if embed:
         base = "comm_embed_dial" if embed == "dial" else "comm_embed"
-        want.update({f"{base}_fwd": fwd, f"{base}_fwd_{variant}": fwd,
-                     f"{base}_bwd": bwd, f"{base}_bwd_{variant}": bwd})
+        for b in (base, "dial_head") if embed == "dial" else (base,):
+            want.update({f"{b}_fwd": fwd, f"{b}_fwd_{variant}": fwd,
+                         f"{b}_bwd": bwd, f"{b}_bwd_{variant}": bwd})
     if got is None:
         got = {k: v for c in wrapper_counts() for k, v in c.items()}
     else:
@@ -998,7 +1140,11 @@ KERNEL_OF = {"lstm_cell_fwd_tc": "lstm_tc_fwd_kernel",
              "comm_embed_fwd_tc": "comm_embed_tc_fwd_kernel",
              "comm_embed_bwd_tc": "comm_embed_tc_bwd_kernel",
              "comm_embed_fwd_general": "comm_embed_fwd_kernel",
-             "comm_embed_bwd_general": "comm_embed_bwd_kernel"}
+             "comm_embed_bwd_general": "comm_embed_bwd_kernel",
+             "dial_head_fwd_tc": "dial_head_tc_fwd_kernel",
+             "dial_head_bwd_tc": "dial_head_tc_bwd_kernel",
+             "dial_head_fwd_general": "dial_head_fwd_kernel",
+             "dial_head_bwd_general": "dial_head_bwd_kernel"}
 
 
 def kernel_counts(by_name):
@@ -1007,7 +1153,7 @@ def kernel_counts(by_name):
     for key, kernel in KERNEL_OF.items():
         pat = re.compile(rf"(?<!\w){kernel}(?!\w)")
         got[key] = sum(n for name, n in by_name.items() if pat.search(name))
-    for base in ("lstm_cell", "comm_embed"):
+    for base in ("lstm_cell", "comm_embed", "dial_head"):
         for d in ("fwd", "bwd"):
             got[f"{base}_{d}"] = (got[f"{base}_{d}_tc"]
                                   + got[f"{base}_{d}_general"])
@@ -1557,9 +1703,11 @@ def agent_spread(params) -> float:
 
 
 def run_families(card: str, profile: bool, n_timed: int = 2):
-    """The flagship step for each of the six agents."""
+    """The flagship step for each of the six agents; returns MA2C_DIAL's
+    ``timed_steps`` counts."""
     import torch
     T, B = 120, 768
+    dial_counts = None
     for agent in AGENTS:
         what = f"families {agent}"
         fns = make_flagship("cuda", agent=agent)
@@ -1568,6 +1716,8 @@ def run_families(card: str, profile: bool, n_timed: int = 2):
         ts, m, counts, step_times = timed_steps(
             what, fns, ts, n_timed, 2 * T + 1, T, "tc", T,
             embed={"ma2c_nc": True, "ma2c_dial": "dial"}.get(agent, False))
+        if agent == "ma2c_dial":
+            dial_counts = counts
         line = {"agent": agent, "loss": float(m["loss"]),
                 "grad_norm": float(m["grad_norm"]),
                 "env_steps_per_s": n_timed * T * B / sum(step_times),
@@ -1594,6 +1744,7 @@ def run_families(card: str, profile: bool, n_timed: int = 2):
         log("families " + json.dumps(line))
         del fns, ts
         torch.cuda.empty_cache()
+    return dial_counts
 
 
 def check_replay():
@@ -2489,10 +2640,16 @@ def main(argv=None) -> int:
     times = _build.build(verbose=True)
     log(f"build: {json.dumps(times)} ({time.perf_counter() - t0:.1f} s "
         f"wall, nvcc per source in parallel)")
+    # the message head's nvcc alone (the parallel build's times all run
+    # from one start)
+    os.remove(_build.lib_path("dial_head"))
+    head_build_s = _build.build(["dial_head"])["dial_head"]
+    log(f"build: dial_head alone {head_build_s:.1f} s")
 
     entries = check_kernels()
     env_entry = check_env_kernel(card)
     embed_entries = check_comm_embed(card)
+    head_entries = check_dial_head(card, head_build_s)
     if args.tune:
         tune_kernels()
     if args.kernels_only:
@@ -2507,7 +2664,7 @@ def main(argv=None) -> int:
     bench_launches = run_bench(card)
     grid_params = ts.params
     del ts
-    run_families(card, args.profile)
+    dial_counts = run_families(card, args.profile)
     replay_launches = check_replay()
     cacc, cacc_launches = run_cacc(card)
     eval_launches = check_eval_record(
@@ -2630,6 +2787,20 @@ def main(argv=None) -> int:
             replaces=EMBED_REPLACES, launches=next(iter(paths.values())),
             device_launches=ran.get("flagship"), launches_by_path=paths,
             device_launches_by_path=ran, **e))
+    # DIAL's message head: the DIAL flagship's counts (the families phase)
+    for name, e in head_entries.items():
+        if name.endswith("_general"):
+            continue
+        paths = {"families ma2c_dial": dial_counts["issued"][name]}
+        ran = {"families ma2c_dial": dial_counts["ran"][name]}
+        if min(paths.values()) <= 0 or min(ran.values()) <= 0:
+            raise AssertionError(f"{name} was not launched on its paths: "
+                                 f"{paths}, on the card {ran}")
+        kernels.append(dict(
+            name=name, route="cuda", source=HEAD_SOURCE,
+            replaces=HEAD_REPLACES, launches=paths["families ma2c_dial"],
+            device_launches=ran["families ma2c_dial"],
+            launches_by_path=paths, device_launches_by_path=ran, **e))
     log(f"total: {time.perf_counter() - t_start:.1f} s; "
         f"throughput {sps:.1f} env-steps/s on {card}")
     print(json.dumps({"kernels": kernels}))

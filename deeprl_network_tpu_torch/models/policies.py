@@ -44,6 +44,7 @@ from deeprl_network_tpu_torch.models.layers import (
 from deeprl_network_tpu_torch.ops.comm_embed import (
     comm_embed, neighbour_tables,
 )
+from deeprl_network_tpu_torch.ops.dial_head import dial_head
 from deeprl_network_tpu_torch.ops.lstm_cell import fused_agent_lstm
 
 BIG_NEG = -1e9
@@ -302,9 +303,10 @@ def _embed(spec: PolicySpec, params: PolicyParams, h_prev: torch.Tensor,
     zeros of it. NEURCOMM and DIAL over packed neighbour lists
     (``sparse_comm``, no ``neighbor_obs``) are one kernel each way
     (``ops/comm_embed.py``, the plain twin on the CPU): DIAL's message head
-    runs as its einsum, and the kernel sums the messages over the lists
-    without a fingerprint term or a mask; every other case runs the einsums
-    below. Einsum
+    is a kernel of its own (``ops/dial_head.py``: the done mask and the bias
+    inside, the messages written as the rows the embedding reads), and the
+    embedding sums the messages over the lists without a fingerprint term or
+    a mask; every other case runs the einsums below. Einsum
     letters: b env, n receiving agent, m sending agent (dense), k neighbour
     slot (packed), x the sender's feature (obs, fingerprint, hidden state or
     DIAL message), d DIAL message width, f embedding."""
@@ -317,15 +319,16 @@ def _embed(spec: PolicySpec, params: PolicyParams, h_prev: torch.Tensor,
         return comm_embed(obs, fp, h_prev, done, params.w_obs.w,
                           params.w_obs.b, params.w_fp, params.w_msg,
                           consts.nbr, consts.rev)
+    if kernel and ct is CommType.DIAL:
+        msg = dial_head(h_prev, done, params.w_dial.w, params.w_dial.b)
+        return comm_embed(obs, None, msg, None, params.w_obs.w,
+                          params.w_obs.b, None, params.w_msg, consts.nbr,
+                          consts.rev)
     if done is not None:
         h_prev = h_prev * (1.0 - done.to(h_prev.dtype))[:, None, None]
     if ct == CommType.DIAL:
         msg = (torch.einsum("bmh,mhd->bmd", h_prev, params.w_dial.w)
                + params.w_dial.b)
-        if kernel:
-            return comm_embed(obs, None, msg, None, params.w_obs.w,
-                              params.w_obs.b, None, params.w_msg, consts.nbr,
-                              consts.rev)
     idx = consts.idx
 
     def edge_sum(x, w):

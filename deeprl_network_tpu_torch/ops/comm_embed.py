@@ -11,9 +11,10 @@ The MA2C_NC policy with ``sparse_comm`` feeds each agent's LSTM cell with
 over the valid slots k of agent n (``models/policies.py`` ``_embed``).
 The MA2C_DIAL policy makes the same call with no fingerprint term (``fp``
 and ``w_fp`` None: A = 0) and its messages m = ((1 - done) h) W_dial +
-b_dial in the place of h, unmasked (``done`` None): the message head stays
-an einsum of the caller's, whose autograd takes the gradient of m back to h
-and the head. As PyTorch ops that is a gather of a [B, N, K, X] tensor for
+b_dial in the place of h, unmasked (``done`` None): the message head is a
+kernel of its own (``ops/dial_head.py``), which writes m as the [B, N, D]
+rows read here and takes the gradient of m back to h and the head. As
+PyTorch ops that is a gather of a [B, N, K, X] tensor for
 each sender feature, three einsums, the adds and the relu: about 12
 kernels a control step forward and 16 backward, where the gradient of
 ``h``'s gather is a sorting ``index_put``. ``comm_embed`` computes it in one

@@ -410,14 +410,16 @@ OPS_CASES = [(tp.CommType.NEURCOMM, False, False),
     (tp.CommType.NEURCOMM, True, False)])
 def test_embed_dispatch(monkeypatch, comm, sparse, nobs):
     """``_embed`` takes the kernel's wrapper for packed NEURCOMM and DIAL
-    without ``neighbor_obs`` only; dense comm, FP, COMMNET, NONE and
-    ``neighbor_obs`` keep their ops, and ``policy_step_batched`` gives the
-    same step either way it is asked (``done`` folded in, or a masked
-    carry)."""
-    calls = []
-    real = tp.comm_embed
+    without ``neighbor_obs`` only, and the message head's wrapper for that
+    DIAL alone; dense comm, FP, COMMNET, NONE and ``neighbor_obs`` keep
+    their ops, and ``policy_step_batched`` gives the same step either way it
+    is asked (``done`` folded in, or a masked carry)."""
+    calls, heads = [], []
+    real, real_head = tp.comm_embed, tp.dial_head
     monkeypatch.setattr(tp, "comm_embed",
                         lambda *a: calls.append(1) or real(*a))
+    monkeypatch.setattr(tp, "dial_head",
+                        lambda *a: heads.append(1) or real_head(*a))
     adj = _grid_adj(3, 3)
     spec = _spec(adj, 5, 4, 8, comm=comm, sparse=sparse, nobs=nobs)
     params = tp.mask_comm_params(spec, tp.init_policy_params(
@@ -432,6 +434,7 @@ def test_embed_dispatch(monkeypatch, comm, sparse, nobs):
     engaged = comm in (tp.CommType.NEURCOMM, tp.CommType.DIAL) \
         and sparse and not nobs
     assert len(calls) == int(engaged)
+    assert len(heads) == int(engaged and comm is tp.CommType.DIAL)
     masked = tp._embed(spec, params, h * (1 - done)[:, None, None], obs, fp,
                        consts)
     np.testing.assert_allclose(e.numpy(), masked.numpy(), rtol=1e-6,
