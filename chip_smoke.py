@@ -3,7 +3,7 @@
 
 Run from the repository root, with no arguments:
 
-    python chip_smoke.py            # add --profile for a torch.profiler pass
+    python chip_smoke.py
 
 Phases (any failure raises, exits non-zero and prints no result line):
   1. device: require a CUDA card; print its name and power limit;
@@ -34,7 +34,7 @@ Phases (any failure raises, exits non-zero and prints no result line):
      10x10 grid at B=128 from graph replays (warm and cold), the host's time
      a call and the twin's, and the bound, each with its launch shape,
      registers a thread and blocks an SM;
- 4b. comm embed: the NeurComm embedding over packed neighbour lists
+  5. comm embed: the NeurComm embedding over packed neighbour lists
      (``ops/csrc/comm_embed.cu``) against its plain twin, forward and
      backward, the backward bitwise equal across two calls, launch counts
      asserted: the flagship (B=768, bf16, ``tc``), Monaco-28 at B=768, a
@@ -50,10 +50,10 @@ Phases (any failure raises, exits non-zero and prints no result line):
      here on every phase that runs MA2C_NC or MA2C_DIAL over packed lists
      asserts its launches beside the cell's: one forward and one backward
      each, and as many of the head's for MA2C_DIAL;
-  5. reference: a small f32 train step on the card against the same step on
+  6. reference: a small f32 train step on the card against the same step on
      the CPU (plain twins, held against the JAX package by the CPU tests),
      and the same at num_fc=64, num_lstm=256 (a cell wider than 256);
-  6. main path: the flagship MA2C_NC train step on the 5x5 grid at full
+  7. main path: the flagship MA2C_NC train step on the 5x5 grid at full
      width (B=768 envs, T=120, bf16 with f32 masters, sparse_comm, remat)
      through ``make_a2c``: a warm-up step (the capture of the update's CUDA
      graph) and 3 timed steps (its replays) under the profiler's kernel
@@ -64,7 +64,7 @@ Phases (any failure raises, exits non-zero and prints no result line):
      asserted (from here on every phase asserts the env kernel's launches
      beside the cell's: one a control step of an ATSC env, T an update, none
      on the platoon);
-  7. graph: ``make_a2c``'s ``jit`` (the default), each update one replay of a
+  8. graph: ``make_a2c``'s ``jit`` (the default), each update one replay of a
      CUDA graph: from one ``init_state(0)`` cloned both ways, 3 updates
      through the graph against 3 eager ones (``jit=False``), every state
      leaf, the generator and every metric bit for bit; the wrappers count
@@ -72,47 +72,35 @@ Phases (any failure raises, exits non-zero and prints no result line):
      worth more than eagerly (the warm-up): the flagship, the f32 3x3 grid
      with kickstart, switch penalty and moving schedules (``ladder_atsc``'s
      ``pq_kick_sp2``), the replay path (f32, B=64), and each of the six
-     families at a small f32 width on both gradient paths; then, in turns,
-     eager against graph at the flagship and at the harness shape (f32,
-     B=64, no remat): ms an update, the host's ms in ``train_step``, and of
-     one update under the profiler the kernels, kernel ms, runtime calls and
-     busy share (the time some kernel, copy or set ran over the span from
-     the first one's start to the last one's end), the first update (warm-
-     up, capture, instantiation) and peak device memory; and the time to
-     copy the flagship state into the graph's inputs leaf by leaf against
-     one copy a dtype; each configuration timed in a new process, since a
-     trace leaves CUPTI set up in its process and slows every later CUDA
-     call there. Every other phase runs the graph: the wrappers count
-     its warm-up and capture, and the phases that time updates (main path,
-     families, cacc, monaco) also count the kernels on the card;
-  8. bench: the throughput tools' twins, ``deeprl_network_tpu_torch/bench.py``
+     families at a small f32 width on both gradient paths. Every other
+     phase runs the graph: the wrappers count its warm-up and capture, and
+     the phases that time updates (main path, families, cacc, monaco) also
+     count the kernels on the card;
+  9. bench: the throughput tools' twin ``deeprl_network_tpu_torch/bench.py``
      (the baseline host loop, and the flagship over a 15 s window after one
      warm-up update: the JSON line with the prefix ``bench:``; the window
      runs untraced, and the wrappers' counts are asserted, 2 x (241 + 120)
-     ``tc`` and 2 x 120 env steps: the warm-up's capture) and
-     ``scripts/profile_step.py``'s variants ``full_ma2c_nc`` and ``ia2c`` at
-     the flagship levers (5 timed calls each), with the kernels of one
-     call, and the ``env`` span of ``full_ma2c_nc``'s updates (``env_span``);
-  9. families: the same step for each of the six agents (a warm-up and 2
+     ``tc`` and 2 x 120 env steps: the warm-up's capture);
+ 10. families: the same step for each of the six agents (a warm-up and 2
      timed steps each), the wrappers' counts and the kernels on the card
      asserted; for IA2C_CU also that the weight consensus ran;
- 10. replay: a small f32 MA2C_NC update with ``fused_grad=False`` against
+ 11. replay: a small f32 MA2C_NC update with ``fused_grad=False`` against
      the fused update from the same state and noise, launch counts asserted;
- 11. cacc: the CACC platoon from ``configs/config_ma2c_nc_cacc_catchup.ini``
+ 12. cacc: the CACC platoon from ``configs/config_ma2c_nc_cacc_catchup.ini``
      and ``configs/config_ia2c_cu_cacc_slowdown.ini`` at the files' own
      sizes (3 train steps each, launch counts asserted), and two small f32
      updates on the card against the CPU port;
- 12. eval/record: ``eval_episode`` (sampled, greedy) and ``record_episode``
+ 13. eval/record: ``eval_episode`` (sampled, greedy) and ``record_episode``
      (greedy, controller) on the grid and on the platoon with the params
      trained above, on the card against the same calls on the CPU with the
      same noise, and one whole sampled episode each on the card;
- 13. monaco: Monaco-28 MA2C_NC from ``configs/config_ma2c_nc_net.ini``: two
+ 14. monaco: Monaco-28 MA2C_NC from ``configs/config_ma2c_nc_net.ini``: two
      small f32 updates on the card against the CPU port; the file's own step
      (N=28, B=32, T=120, 64/64, f32: a warm-up and 3 timed steps, launch
      counts asserted, every sampled action inside its node's action count);
      the same env at the flagship's settings (B=768, bf16, sparse_comm,
      remat: a warm-up and 2 timed steps);
- 14. cli: in a temporary directory, the port's CLI on a copy of that file
+ 15. cli: in a temporary directory, the port's CLI on a copy of that file
      with ``total_step`` cut to 5 updates: ``train`` with ``in_train_test``
      (log rows with each span's mean, a test row, the config snapshot,
      checkpoints), ``train
@@ -121,7 +109,7 @@ Phases (any failure raises, exits non-zero and prints no result line):
      ``Trainer`` run with the time inside and outside ``train_step`` read
      apart, the restored params held bit-equal to the trainer's final ones,
      and the checkpoint's size, save and restore times;
- 15. scripts: the learning and evaluation harnesses
+ 16. scripts: the learning and evaluation harnesses
      (``deeprl_network_tpu_torch/scripts/``): ``train_atsc.greedy_returns``
      on the 5x5 grid, every form of the hand-controller sweep on seeds
      10000-10002 at 720 steps, each form within 1e-5 of the CPU port over
@@ -130,24 +118,22 @@ Phases (any failure raises, exits non-zero and prints no result line):
      ``train_atsc`` (3x3 grid, ``--ckpt``) for 2 updates at B=8 with their
      final evals, launch counts asserted, every row's keys those of the JAX
      repo's ``scripts/``, the checkpoint restored;
- 16. agents: the reference-style host loop with the compat ``MA2C_NC`` class
+ 17. agents: the reference-style host loop with the compat ``MA2C_NC`` class
      on the platoon for two ``n_step = 10`` batches, launch counts asserted
      per call;
- 17. surface: the JAX package's re-exported names from the port's
+ 18. surface: the JAX package's re-exported names from the port's
      packages; the single-env ``policy_step`` at the flagship width
      (grid-25, 64/64, f32) on the card, one launch, bit-equal to
      ``policy_step_batched`` at B=1 and within 1e-5 of the CPU port;
      ``graft_entry.entry()`` once;
- 18. parallel: data-parallel training through ``make_parallel_a2c`` in
+ 19. parallel: data-parallel training through ``make_parallel_a2c`` in
      worker processes (``parallel/smoke_worker.py``): the NCCL path at world
      size 1 on the flagship (B=768); two gloo ranks sharing the card, (a) a
      small f32 MA2C_NC platoon update against one process on the combined
      batch (actions and obs exact, params within 1e-4) and (b) the flagship
      at a global B=768, 384 a rank (launch counts, step, finite loss and
      params bit-identical across ranks asserted); env-steps/s of 1 and 2
-     ranks, the gradient all-reduce's bytes and time; ``dryrun_multichip(2)``;
- 19. (--profile) device busy share and kernel time by name over one
-     flagship step, and the number of kernels in one step of each family.
+     ranks, the gradient all-reduce's bytes and time; ``dryrun_multichip(2)``.
 
 Output: a kernels JSON line and the card's name and power limit on lines
 before the last; the last line is
@@ -167,6 +153,8 @@ import subprocess
 import sys
 import tempfile
 import time
+
+from benchmark.trace import events, traced
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
 PEAK_BYTES_PER_S = 3.35e12
@@ -795,9 +783,9 @@ def check_comm_embed(card):
                                               agent=agent)
         dt = getattr(torch, dt_name)
         n_a = 0 if fwd_args[1] is None else spec.n_a_max
-        variant = ce.kernel_variant(
-            dt, spec.n_s_max, n_a, fwd_args[8].shape[1], width,
-            width, fwd_args[9].shape[1])
+        variant = "tc" if ce.takes_tc(
+            dt, spec.n_s_max, n_a, fwd_args[8].shape[1], width, width,
+            fwd_args[9].shape[1]) else "general"
         before = dict(ce.LAUNCHES)
         e = ce.comm_embed_fwd(*fwd_args)
         got_b = ce.comm_embed_bwd(*bwd_args)
@@ -819,10 +807,9 @@ def check_comm_embed(card):
         moved = {k: v - before[k] for k, v in ce.LAUNCHES.items()
                  if v != before[k]}
         base = "comm_embed_dial" if agent == "ma2c_dial" else "comm_embed"
-        if moved != {f"{base}_fwd": 1, f"{base}_fwd_{variant}": 1,
-                     f"{base}_bwd": 2, f"{base}_bwd_{variant}": 2}:
+        if moved != {f"{base}_fwd": 1, f"{base}_bwd": 2}:
             raise AssertionError(f"comm embed {name}: launch counts moved "
-                                 f"by {moved}, expected {variant}")
+                                 f"by {moved}")
         row = {"shape": name, "network": network, "B": B, "dtype": dt_name,
                "width": width, "agent": agent, "variant": variant,
                "fwd_max_abs_err": err_f, "bwd_max_abs_err": err_b}
@@ -967,7 +954,8 @@ def check_dial_head(card, build_s):
     for name, B, dt_name in HEAD_CASES:
         h, done, w, b, dm = head_args(B, dt_name)
         dt = h.dtype
-        variant = dh.kernel_variant(dt, h.shape[-1], w.shape[-1])
+        variant = "tc" if dh.takes_tc(dt, h.shape[-1], w.shape[-1]) \
+            else "general"
         before = dict(dh.LAUNCHES)
         m = dh.dial_head_fwd(h, done, w, b)
         got = dh.dial_head_bwd(h, done, w, dm)
@@ -982,10 +970,9 @@ def check_dial_head(card, build_s):
                                  "deterministic")
         moved = {k: v - before[k] for k, v in dh.LAUNCHES.items()
                  if v != before[k]}
-        if moved != {"dial_head_fwd": 1, f"dial_head_fwd_{variant}": 1,
-                     "dial_head_bwd": 2, f"dial_head_bwd_{variant}": 2}:
+        if moved != {"dial_head_fwd": 1, "dial_head_bwd": 2}:
             raise AssertionError(f"dial head {name}: launch counts moved by "
-                                 f"{moved}, expected {variant}")
+                                 f"{moved}")
         leaves = [x.clone().requires_grad_() for x in (h, w, b)]
 
         def ops_fwd():
@@ -1106,8 +1093,8 @@ def expect_counts(what, fwd, bwd, variant, env, got=None, embed=False):
     launches, all of ``variant``, and ``env`` env-step launches; with
     ``embed`` (True: MA2C_NC over packed neighbour lists; "dial": MA2C_DIAL,
     under DIAL's keys, and as many of its message head's) as many
-    comm-embedding launches of the same variant as cell launches, else
-    none; returns the counts. ``got`` defaults to
+    comm-embedding launches as cell launches, else none; returns the
+    counts. ``got`` defaults to
     the wrappers' counts since ``zero_counts()``: launches issued from
     Python or captured into a CUDA graph, whose replays they do not see;
     ``on_card`` gives what ran, counted by kernel name (``card_view``)."""
@@ -1118,8 +1105,7 @@ def expect_counts(what, fwd, bwd, variant, env, got=None, embed=False):
     if embed:
         base = "comm_embed_dial" if embed == "dial" else "comm_embed"
         for b in (base, "dial_head") if embed == "dial" else (base,):
-            want.update({f"{b}_fwd": fwd, f"{b}_fwd_{variant}": fwd,
-                         f"{b}_bwd": bwd, f"{b}_bwd_{variant}": bwd})
+            want.update({f"{b}_fwd": fwd, f"{b}_bwd": bwd})
     if got is None:
         got = {k: v for c in wrapper_counts() for k, v in c.items()}
     else:
@@ -1130,80 +1116,43 @@ def expect_counts(what, fwd, bwd, variant, env, got=None, embed=False):
     return dict(got)
 
 
-# the kernel that each wrapper call launches once, by the count the wrapper
-# adds to (the backward wrappers launch more kernels after it)
+# the kernel that each wrapper call launches once (a pattern: the comm
+# embedding and the head count either pair under one key), by the count the
+# wrapper adds to (the backward wrappers launch more kernels after it)
 KERNEL_OF = {"lstm_cell_fwd_tc": "lstm_tc_fwd_kernel",
              "lstm_cell_bwd_tc": "lstm_tc_bwd_act_kernel",
              "lstm_cell_fwd_general": "lstm_fwd_kernel",
              "lstm_cell_bwd_general": "lstm_bwd_act_kernel",
              "network_env_step": "network_env_kernel",
-             "comm_embed_fwd_tc": "comm_embed_tc_fwd_kernel",
-             "comm_embed_bwd_tc": "comm_embed_tc_bwd_kernel",
-             "comm_embed_fwd_general": "comm_embed_fwd_kernel",
-             "comm_embed_bwd_general": "comm_embed_bwd_kernel",
-             "dial_head_fwd_tc": "dial_head_tc_fwd_kernel",
-             "dial_head_bwd_tc": "dial_head_tc_bwd_kernel",
-             "dial_head_fwd_general": "dial_head_fwd_kernel",
-             "dial_head_bwd_general": "dial_head_bwd_kernel"}
+             "comm_embed_fwd": "comm_embed_(?:tc_)?fwd_kernel",
+             "comm_embed_bwd": "comm_embed_(?:tc_)?bwd_kernel",
+             "dial_head_fwd": "dial_head_(?:tc_)?fwd_kernel",
+             "dial_head_bwd": "dial_head_(?:tc_)?bwd_kernel"}
 
 
 def kernel_counts(by_name):
     """The wrappers' count names from kernel counts by (demangled) name."""
     got = {}
     for key, kernel in KERNEL_OF.items():
-        pat = re.compile(rf"(?<!\w){kernel}(?!\w)")
+        pat = re.compile(rf"(?<!\w)(?:{kernel})(?!\w)")
         got[key] = sum(n for name, n in by_name.items() if pat.search(name))
-    for base in ("lstm_cell", "comm_embed", "dial_head"):
-        for d in ("fwd", "bwd"):
-            got[f"{base}_{d}"] = (got[f"{base}_{d}_tc"]
-                                  + got[f"{base}_{d}_general"])
+    for d in ("fwd", "bwd"):
+        got[f"lstm_cell_{d}"] = (got[f"lstm_cell_{d}_tc"]
+                                 + got[f"lstm_cell_{d}_general"])
     return got
-
-
-# idle seconds kept at both ends of a trace: the profiler drops the device
-# records that its clock places outside the trace's window ("Out-of-range"
-# in its log); without them a trace that ended right after a graph replay
-# missed 27 forward and 28 backward cell kernels, as the replay's last
-# backward steps would be
-TRACE_EDGE_S = 0.2
-
-
-@contextlib.contextmanager
-def traced():
-    """torch.profiler over the block, CUDA activity only (the kernels,
-    copies and sets on the card and the CUDA runtime calls), the card idle
-    at both ends; yields the profiler, to be read after the block."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        time.sleep(TRACE_EDGE_S)
-        yield prof
-        torch.cuda.synchronize()
-        time.sleep(TRACE_EDGE_S)
-
-
-def trace_events(prof):
-    """(card, name, start ns, duration ns) of every event of a finished
-    trace: on the card, the kernels, copies and sets; else the CUDA runtime
-    calls. Read from the profiler's raw events: its event tree
-    (``key_averages``) takes seconds to build for a trace of an update."""
-    from torch.autograd import DeviceType
-    return [(e.device_type() == DeviceType.CUDA, e.name(), e.start_ns(),
-             e.duration_ns()) for e in prof.profiler.kineto_results.events()]
 
 
 @contextlib.contextmanager
 def on_card():
     """The kernels that run on the card inside the block, counted by name
-    under ``traced`` into the yielded dict, filled at the block's end under
-    the wrappers' count names: unlike the wrappers' counts, these include
-    what replays of a CUDA graph run."""
+    under ``benchmark.trace.traced`` into the yielded dict, filled at the
+    block's end under the wrappers' count names: unlike the wrappers'
+    counts, these include what replays of a CUDA graph run."""
     ran = {}
     with traced() as prof:
         yield ran
     by_name = {}
-    for card, name, _, _ in trace_events(prof):
+    for card, name, _, _ in events(prof):
         if card:
             by_name[name] = by_name.get(name, 0) + 1
     ran.update(kernel_counts(by_name))
@@ -1433,174 +1382,13 @@ def graph_against_eager(what, make, n=3):
     return graph, times
 
 
-def api_and_kernels(fn, arg):
-    """One ``fn(arg)`` under ``traced``: (CUDA runtime calls by name,
-    kernels by name, their seconds, the span in seconds from the first
-    device activity's start to the last one's end, and the busy share: the
-    part of that span in which some kernel, copy or set ran)."""
-    with traced() as prof:
-        fn(arg)
-    calls, kernels, spans = {}, {}, []
-    for card, name, start, dur in trace_events(prof):
-        if card:
-            kernels[name] = kernels.get(name, 0) + 1
-            spans.append((start, start + dur))
-        elif name.startswith("cuda") or (name.startswith("cu")
-                                          and name[2:3].isupper()):
-            calls[name] = calls.get(name, 0) + 1
-    spans.sort()
-    busy, end = 0, spans[0][0]
-    for a, b in spans:                  # the union of the intervals (ns)
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    span = end - spans[0][0]
-    total = sum(b - a for a, b in spans)
-    return calls, kernels, total / 1e9, span / 1e9, busy / span
-
-
-def graph_timings(what, make, n=5):
-    """Eager (``jit=False``) against graph in turns: the first update (the
-    graph's warm-up, capture and instantiation), then ``n`` updates each,
-    alternating, each after a sync: wall ms an update and the host's ms in
-    ``train_step`` (until it returns); of one more update under the
-    profiler, its kernels, kernel ms, runtime calls, device span and busy
-    share; peak device memory of each way from a fresh start (init, first
-    update and one more). Returns the result dict, and the two ways'
-    functions and states."""
-    import gc
-    import statistics
-    import torch
-    out = {"what": what}
-    peaks = {}
-    for jit in (False, True):
-        gc.collect()
-        torch.cuda.empty_cache()
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        fns = make(jit)
-        ts = fns.init_state(0)
-        for _ in range(2):
-            ts, m = fns.train_step(ts)
-        torch.cuda.synchronize()
-        peaks[jit] = (torch.cuda.max_memory_allocated() - base) / 2**30
-        del fns, ts, m
-    out["peak_gib"] = {"eager": peaks[False], "graph": peaks[True]}
-    fns = {jit: make(jit) for jit in (False, True)}
-    ts = {True: fns[True].init_state(0)}
-    ts[False] = clone_state(ts[True])
-    first = {}
-    for jit in (False, True):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        ts[jit], _ = fns[jit].train_step(ts[jit])
-        torch.cuda.synchronize()
-        first[jit] = time.perf_counter() - t0
-    out["first_update_s"] = {"eager": first[False], "graph": first[True]}
-    out["capture_s"] = next(iter(fns[True].graphed.graphs.values())).times
-    rows = {False: [], True: []}
-    for _ in range(n):
-        for jit in (False, True):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            ts[jit], m = fns[jit].train_step(ts[jit])
-            t1 = time.perf_counter()
-            torch.cuda.synchronize()
-            t2 = time.perf_counter()
-            rows[jit].append(((t2 - t0) * 1e3, (t1 - t0) * 1e3))
-    for jit, name in ((False, "eager"), (True, "graph")):
-        wall, host = zip(*rows[jit])
-        calls, kernels, k_s, span_s, busy = api_and_kernels(
-            fns[jit].train_step, ts[jit])
-        ms = statistics.median(wall)
-        out[name] = {
-            "ms": ms, "ms_all": [round(x, 3) for x in wall],
-            "host_ms": statistics.median(host),
-            "kernels": sum(kernels.values()), "kernel_ms": k_s * 1e3,
-            "span_ms": span_s * 1e3, "busy_share": busy,
-            "runtime_calls": calls}
-        out[f"_{name}_kernels"] = kernels
-    ke, kg = out.pop("_eager_kernels"), out.pop("_graph_kernels")
-    diff = {k: kg.get(k, 0) - ke.get(k, 0) for k in set(ke) | set(kg)
-            if kg.get(k, 0) != ke.get(k, 0)}
-    out["kernels_graph_minus_eager"] = dict(sorted(
-        diff.items(), key=lambda kv: -abs(kv[1]))[:8])
-    out["speedup"] = out["eager"]["ms"] / out["graph"]["ms"]
-    log(f"graph timings {what}: " + json.dumps(out))
-    return out, fns, ts
-
-
-# the configurations the graph phase times, as ``make_flagship`` overrides:
-# the flagship, and the harness shape (f32, B=64, no remat: the general
-# kernels)
-TIMED = {"flagship": {},
-         "harness f32 B=64": dict(num_envs=64, compute_dtype="float32",
-                                  sparse_comm=False, remat=False)}
-
-
-def graph_timings_child(what: str) -> None:
-    """``graph_timings`` of ``TIMED[what]`` in this process (and, at the
-    flagship, ``copy_in_times``); prints the result as the last line."""
-    import torch
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    out, fns, ts = graph_timings(
-        what, lambda jit: make_flagship("cuda", jit=jit, **TIMED[what]))
-    if what == "flagship":
-        out["copy_in"] = copy_in_times(fns[True], ts[True], card_line())
-    print(json.dumps(out), flush=True)
-
-
-def fresh_timings(what: str) -> dict:
-    """``graph_timings_child(what)`` in a new process: a trace leaves the
-    profiler's CUPTI set up in its process (torch turns CUPTI's teardown off
-    where CUDA graphs are used), which slows every later CUDA call there,
-    and the phases before this one have traced."""
-    root = os.path.dirname(os.path.abspath(__file__))
-    run = subprocess.run(
-        [sys.executable, "-c",
-         f"import chip_smoke as c; c.graph_timings_child({what!r})"],
-        cwd=root, capture_output=True, text=True, timeout=900)
-    lines = run.stdout.strip().splitlines()
-    for line in lines[:-1]:
-        log(line)
-    if run.returncode != 0 or not lines:
-        raise RuntimeError(f"graph timings {what}: exit {run.returncode}\n"
-                           f"{run.stdout[-4000:]}\n{run.stderr[-4000:]}")
-    return json.loads(lines[-1])
-
-
-def copy_in_times(fns, ts, card):
-    """The graph's copy of a state into its static inputs
-    (``Arena.copy_in``) both ways: ``ts`` as a call returns it (views of one
-    clone an arena: one copy a dtype) and a copy of it leaf by leaf (a
-    restored checkpoint's path); the host's ms a call and the card's."""
-    from deeprl_network_tpu_torch.utils.rollout import state_leaves
-    got = fns.graphed.graphs[False]
-    views = state_leaves(ts)
-    leaves = [t.clone() for t in views]
-    ways = {"leaf_by_leaf": lambda: got.arena_in.copy_in(got.state_in,
-                                                         leaves),
-            "one_a_dtype": lambda: got.arena_in.copy_in(got.state_in,
-                                                        views)}
-    out = {"leaves": len(leaves), "bytes": sum(
-        t.numel() * t.element_size() for t in leaves)}
-    for name, fn in ways.items():
-        out[name] = {"host_ms": host_call_ms(fn), "card_ms": graph_ms(fn)}
-    log(f"graph copy-in flagship: {json.dumps(out)} on {card}")
-    return out
-
-
 def run_graph(card: str):
     """The graph phase: the graph's update against the eager update (the
     flagship; each family at a small f32 width on both gradient paths; the
     f32 3x3 grid with kickstart, switch penalty and moving schedules, a
-    ``ladder_atsc`` variant; the replay path), then, each in a new process
-    (``fresh_timings``), the timings in turns at the flagship and at the
-    harness shape (f32, B=64, no ``remat``: the general kernels) and the
-    flagship state's copy-in. Returns the flagship's graph counts, issued
-    and run."""
-    import torch
+    ``ladder_atsc`` variant; the replay path at the harness shape: f32,
+    B=64, no ``remat``, the general kernels). Returns the flagship's graph
+    counts, issued and run."""
     from deeprl_network_tpu_torch.config import (
         EnvConfig, ModelConfig, TrainConfig,
     )
@@ -1633,36 +1421,18 @@ def run_graph(card: str):
             device="cuda")
     graph_against_eager("ladder pq_kick_sp2 3x3 f32", ladder)
     graph_against_eager("replay f32 B=64", lambda jit: flag(
-        jit, fused_grad=False, **TIMED["harness f32 B=64"]))
-    timings = [fresh_timings(what) for what in TIMED]
-    for t in timings:
-        log(f"graph {t['what']}: {t['eager']['ms']:.2f} ms an update eager, "
-            f"{t['graph']['ms']:.2f} graph ({t['speedup']:.2f}x); host "
-            f"{t['eager']['host_ms']:.2f} / {t['graph']['host_ms']:.2f} ms "
-            f"in train_step; kernels "
-            f"{t['eager']['kernels']} / {t['graph']['kernels']}, kernel ms "
-            f"{t['eager']['kernel_ms']:.2f} / {t['graph']['kernel_ms']:.2f} "
-            f"over a span of {t['eager']['span_ms']:.2f} / "
-            f"{t['graph']['span_ms']:.2f} ms under the trace, busy share "
-            f"{t['eager']['busy_share']:.4f} / {t['graph']['busy_share']:.4f};"
-            f" first update {t['first_update_s']['eager']:.3f} / "
-            f"{t['first_update_s']['graph']:.3f} s; peak "
-            f"{t['peak_gib']['eager']:.3f} / {t['peak_gib']['graph']:.3f} GiB"
-            f" on {card}")
-    del timings
-    torch.cuda.empty_cache()
+        jit, fused_grad=False, num_envs=64, compute_dtype="float32",
+        sparse_comm=False, remat=False))
     log(f"graph: phase {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
 def run_bench(card: str):
-    """The throughput tools' twins: ``bench.py``'s measure at the flagship
-    over a 15 s window, its launch counts asserted, and ``profile_step``'s
-    variants at the flagship levers with the kernels of one call each;
-    returns the window's launch counts."""
+    """The throughput tools' twin: ``bench.py``'s measure at the flagship
+    over a 15 s window, its launch counts asserted; returns the window's
+    launch counts."""
     import math
     from deeprl_network_tpu_torch import bench
-    from deeprl_network_tpu_torch.scripts import profile_step
     t_phase = time.perf_counter()
     baseline = bench.measure_baseline()
     log(f"bench: baseline (reference-style host loop) {baseline:.1f} "
@@ -1684,15 +1454,6 @@ def run_bench(card: str):
         f"of {bench.CHUNK} {json.dumps([round(t, 3) for t in r.chunk_s])} s "
         f"on {card}")
     log("bench: " + bench.result_line(r.env_steps_per_s, baseline))
-    res, kernels = profile_step.run(num_envs=768, dtype="bfloat16",
-                                    sparse_comm=True, remat=True, n=5)
-    for name, dt in res.items():
-        line = f"bench profile_step {name}: {dt * 1e3:.2f} ms a call"
-        if name in kernels:
-            n_k, k_s = kernels[name]
-            line += (f", {n_k} kernels a call, {k_s * 1e3:.2f} ms of kernel "
-                     f"time (busy share {k_s / dt:.4f})")
-        log(f"{line} (B=768, T=120, bf16, sparse_comm, remat) on {card}")
     log(f"bench: phase {time.perf_counter() - t_phase:.1f} s")
     return launches
 
@@ -1702,7 +1463,7 @@ def agent_spread(params) -> float:
     return float(params.lstm.wx.var(dim=0).mean())
 
 
-def run_families(card: str, profile: bool, n_timed: int = 2):
+def run_families(card: str, n_timed: int = 2):
     """The flagship step for each of the six agents; returns MA2C_DIAL's
     ``timed_steps`` counts."""
     import torch
@@ -1735,12 +1496,6 @@ def run_families(card: str, profile: bool, n_timed: int = 2):
         elif not spread > 0.9 * spread0:
             raise AssertionError(f"{what}: spread between agents "
                                  f"{spread0} -> {spread} without consensus")
-        if profile:
-            from deeprl_network_tpu_torch.scripts.profile_step import (
-                count_kernels,
-            )
-            line["kernels_per_step"], line["kernel_s_per_step"] = \
-                count_kernels(fns.train_step, ts)
         log("families " + json.dumps(line))
         del fns, ts
         torch.cuda.empty_cache()
@@ -2446,8 +2201,7 @@ def check_rank_results(what, results, n_updates, fwd, bwd, variant, T, env,
         if env:
             want["network_env_step"] = env * n
         if embed:
-            want.update({k.replace("lstm_cell", "comm_embed"): v
-                         for k, v in want.items() if "lstm_cell" in k})
+            want.update(comm_embed_fwd=fwd * n, comm_embed_bwd=bwd * n)
         if r["launches"] != want:
             raise AssertionError(f"{what} rank {r['rank']}: kernel launches "
                                  f"{r['launches']}, expected {want}")
@@ -2565,52 +2319,8 @@ def run_other(card: str):
     return launches
 
 
-def profile_step(fns, ts, step_s: float):
-    """Device busy share and kernel time by name over one train_step under
-    torch.profiler; ``step_s`` is the unprofiled step time for the share
-    without the profiler's own host cost."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        fns.train_step(ts)
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    from torch.autograd import DeviceType
-    dev, host = [], []
-    for ev in prof.key_averages():
-        # kernel events only: op events also carry their kernels' time
-        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total:
-            dev.append((ev.self_device_time_total, ev.count, ev.key))
-        elif ev.self_cpu_time_total > 0:
-            host.append((ev.self_cpu_time_total, ev.count, ev.key))
-    dev.sort(reverse=True)
-    host.sort(reverse=True)
-    total = sum(d for d, _, _ in dev) / 1e6
-    n_kernels = sum(c for _, c, _ in dev)
-    log(f"profile: one train_step, {n_kernels} kernels, kernel time "
-        f"{total:.4f} s; wall under the profiler {wall:.3f} s (busy share "
-        f"{total / wall:.4f}); unprofiled step {step_s:.3f} s (busy share "
-        f"{total / step_s:.4f})")
-    for d, c, k in dev[:20]:
-        log(f"profile device: {d / 1e3:10.3f} ms {d / 1e6 / total:7.2%} "
-            f"{c:7d} x {k[:100]}")
-    # cross-check of the kernels phase's graph-replay times: the cell's
-    # kernels as the step ran them (inputs fresh from the embed ops)
-    for d, c, k in dev:
-        if "lstm" in k:
-            log(f"profile cell kernel: {d / c / 1e3:.5f} ms/launch over "
-                f"{c} launches of {k[:60]}")
-    for d, c, k in host[:12]:
-        log(f"profile host:   {d / 1e3:10.3f} ms {c:7d} x {k[:100]}")
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--profile", action="store_true",
-                    help="also profile one flagship train_step")
     ap.add_argument("--tune", action="store_true",
                     help="also time the tensor-core kernels on other grids")
     ap.add_argument("--kernels-only", action="store_true",
@@ -2657,14 +2367,11 @@ def main(argv=None) -> int:
     check_reference("reference", small_grid, 5)
     check_wide_reference()
     launches, sps, fns, ts = run_main_path(card)
-    step_s = 120 * 768 / sps
-    if args.profile:
-        profile_step(fns, ts, step_s)
     graph_launches = run_graph(card)
     bench_launches = run_bench(card)
     grid_params = ts.params
     del ts
-    dial_counts = run_families(card, args.profile)
+    dial_counts = run_families(card)
     replay_launches = check_replay()
     cacc, cacc_launches = run_cacc(card)
     eval_launches = check_eval_record(
@@ -2760,12 +2467,13 @@ def main(argv=None) -> int:
         library_ms=None, launches_by_path=env_paths,
         device_launches_by_path=env_ran, **env_entry))
     # the comm embedding: the flagship's counts and every other packed
-    # MA2C_NC path's (the general kernels: a grid eval episode at B=1 and the
-    # small f32 updates of the replay check)
+    # MA2C_NC path's (the general kernels, counted under the same keys: a
+    # grid eval episode at B=1 and the small f32 updates of the replay check)
     for name, e in embed_entries.items():
         if name.endswith("_general"):
+            key = name[:-len("_general")]
             general = {"eval grid episode": eval_launches, **replay_launches}
-            paths = {k: v[name] for k, v in general.items() if v[name]}
+            paths = {k: v[key] for k, v in general.items() if v[key]}
             ran = {}
         else:
             b768 = monaco_launches["monaco b768"]

@@ -18,25 +18,27 @@ PyTorch ops that is a gather of a [B, N, K, X] tensor for
 each sender feature, three einsums, the adds and the relu: about 12
 kernels a control step forward and 16 backward, where the gradient of
 ``h``'s gather is a sorting ``index_put``. ``comm_embed`` computes it in one
-launch forward and one backward call (two launches on the tensor cores:
-g = de * (e > 0), then the gradients; ``csrc/comm_embed.cu`` states the
-design and its bound): the gather is read inside the per-agent product and
-the backward sums over the reverse neighbour list, deterministically. It
-replaces no TPU kernel: XLA fuses the JAX package's einsum chain.
+launch forward and two backward (g = de * (e > 0), then the gradients;
+``csrc/comm_embed.cu`` states the design and its bound): the gather is read
+inside the per-agent product and the backward sums over the reverse
+neighbour list, deterministically. It replaces no TPU kernel: XLA fuses the
+JAX package's einsum chain.
 
-Dispatch is by the tensors' device: CUDA tensors launch a kernel (and raise
-if a launch fails; there is no fallback), CPU tensors run the plain twins
-``comm_embed_fwd_ref`` / ``comm_embed_bwd_ref``, which keep the kernels'
-rounding points: the gather, one product over the concatenated terms
-[obs | 1 | fp slots | h slots] accumulated in f32, one rounding, then relu.
-On the card ``kernel_variant`` picks ``"tc"`` (bf16 on the tensor cores,
-where the LSTM cell takes its tensor-core kernel and the layout fits) or
-``"general"`` (f32 FMAs on the CUDA cores: float32, and every other width).
-Launches are counted in ``LAUNCHES``: ``comm_embed_fwd`` / ``comm_embed_bwd``
-and per variant (``comm_embed_fwd_tc``, ...) for the calls that mask their
+Dispatch: CPU tensors run the plain twins ``comm_embed_fwd_ref`` /
+``comm_embed_bwd_ref``; CUDA tensors launch a kernel, and raise if a launch
+fails (there is no fallback): the tensor-core pair where ``takes_tc``
+accepts the call (bf16 where the LSTM cell takes its tensor-core kernel,
+and the layout fits), else the ``general`` pair (f32 FMAs on the CUDA
+cores: float32, and every other width), one launch a call where the twin
+takes a dozen ops. Both paths make the same checks first. The twins keep
+the kernels' rounding points: the gather, one product over the
+concatenated terms [obs | 1 | fp slots | h slots] accumulated in f32, one
+rounding, then relu. Launches are counted in ``LAUNCHES``:
+``comm_embed_fwd`` / ``comm_embed_bwd`` for the calls that mask their
 sender feature by ``done`` (NeurComm's), ``comm_embed_dial_*`` for those
-that do not (DIAL's messages); both run the same kernels. A launch that a
-CUDA graph captures counts once, at the capture.
+that do not (DIAL's messages); both run the same kernels, and which pair
+ran follows from ``takes_tc``. A launch that a CUDA graph captures counts
+once, at the capture.
 
 Shapes: obs [B,N,S], fp [B,N,A] or None, h [B,N,H] (the unmasked carry, or
 DIAL's messages, H = n_msg), done [B] or None, w_obs [N,S,F], b_obs [N,F],
@@ -59,11 +61,10 @@ from deeprl_network_tpu_torch.ops.lstm_cell import (
     _DTYPE_CODE, _acc_dtype, _ptr,
 )
 
-LAUNCHES = {f"{family}_{d}{v}": 0
+LAUNCHES = {f"{family}_{d}": 0
             for family in ("comm_embed", "comm_embed_dial")
-            for d in ("fwd", "bwd") for v in ("", "_tc", "_general")}
+            for d in ("fwd", "bwd")}
 
-_VARIANT_CODE = {"general": 0, "tc": 1}
 _BT = 64            # batch rows of a tile, kBT in comm_embed.cu
 _TC_MAX_W = 64      # kMaxW: largest F, H and padded [obs | 1 | fp] width
 _MAX_SMEM = 232448  # shared memory one block may opt into on the H100
@@ -170,17 +171,16 @@ def tc_shared_bytes(S: int, A: int, K: int, F: int, H: int,
     return fwd, bwd
 
 
-def kernel_variant(dtype: torch.dtype, S: int, A: int, K: int, F: int,
-                   H: int, R: int) -> str:
-    """Which kernel a CUDA call takes, from what the call can see: ``"tc"``
-    where the LSTM cell takes its tensor-core kernel (bf16, F and H
-    multiples of 16, at most 64), the [obs | 1 | fp] columns fit 64 and both
-    layouts fit one block's shared memory; else ``"general"``."""
-    if lstm_cell.kernel_variant(dtype, F, H) == "tc" \
-            and S + 1 + K * A <= _TC_MAX_W \
-            and max(tc_shared_bytes(S, A, K, F, H, R)) <= _MAX_SMEM:
-        return "tc"
-    return "general"
+def takes_tc(dtype: torch.dtype, S: int, A: int, K: int, F: int, H: int,
+             R: int) -> bool:
+    """Whether a CUDA call launches the tensor-core kernels, from what the
+    call can see: where the LSTM cell takes its tensor-core kernel (bf16, F
+    and H multiples of 16, at most 64), the [obs | 1 | fp] columns fit 64
+    and both layouts fit one block's shared memory. Every other CUDA call
+    launches the ``general`` kernels."""
+    return (lstm_cell.kernel_variant(dtype, F, H) == "tc"
+            and S + 1 + K * A <= _TC_MAX_W
+            and max(tc_shared_bytes(S, A, K, F, H, R)) <= _MAX_SMEM)
 
 
 def tc_splits(B: int, N: int, sm_count: int) -> int:
@@ -197,28 +197,15 @@ def dh_splits(B: int, R: int) -> int:
     return max(1, min(-(-B // _BT), 2 * R))
 
 
-def _count(name: str, variant: str, done) -> None:
-    """A launch under NeurComm's keys, or DIAL's where the call masks
-    nothing (``done`` None)."""
-    if done is None:
-        name = name.replace("comm_embed", "comm_embed_dial")
-    LAUNCHES[name] += 1
-    LAUNCHES[f"{name}_{variant}"] += 1
-
-
-def _ready(t: torch.Tensor, dtype, device, name: str) -> torch.Tensor:
-    """``t`` contiguous and 16-byte aligned on the kernel's device and in
-    its dtype (a copy only where it is not)."""
-    if t.device != device:
-        raise ValueError(f"comm_embed: {name} on {t.device}, expected "
-                         f"{device}")
-    if t.dtype != dtype:
-        raise TypeError(f"comm_embed: {name} is {t.dtype}, expected {dtype}")
-    t = t.contiguous()
-    return t if t.data_ptr() % 16 == 0 else t.clone()
-
-
-def _dims(obs, fp, h, done, w_msg, nbr, rev):
+def _dims(name, obs, fp, h, done, w_msg, nbr, rev, **same):
+    """(B, N, S, A, K, F, H) after the checks both paths make: h on the CPU
+    or a CUDA device in float32 or bfloat16, consistent shapes, every
+    tensor on h's device, those of ``same`` (None skipped) in h's dtype and
+    the tables int32."""
+    if h.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {h.device}")
+    if h.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name}: takes float32 or bfloat16, got {h.dtype}")
     B, N, H = h.shape
     S, A = obs.shape[-1], 0 if fp is None else fp.shape[-1]
     K, F = w_msg.shape[1], w_msg.shape[3]
@@ -227,112 +214,97 @@ def _dims(obs, fp, h, done, w_msg, nbr, rev):
             or w_msg.shape != (N, K, H, F) or nbr.shape != (N, K) \
             or rev.ndim != 2 or rev.shape[0] != N:
         raise ValueError("comm_embed: inconsistent shapes")
+    typed = [(t, what, h.dtype) for what, t in
+             dict(obs=obs, fp=fp, w_msg=w_msg, **same).items()]
+    for t, what, dtype in typed + [(done, "done", None),
+                                   (nbr, "nbr", torch.int32),
+                                   (rev, "rev", torch.int32)]:
+        if t is None:
+            continue
+        if t.device != h.device:
+            raise ValueError(f"comm_embed: {what} on {t.device}, expected "
+                             f"{h.device}")
+        if dtype is not None and t.dtype != dtype:
+            raise TypeError(f"comm_embed: {what} is {t.dtype}, expected "
+                            f"{dtype}")
     return B, N, S, A, K, F, H
 
 
-def _variant_for(dtype, dims, R, _variant):
-    S, A, K, F, H = dims[2:]
-    auto = kernel_variant(dtype, S, A, K, F, H, R)
-    variant = auto if _variant is None else _variant
-    if variant not in _VARIANT_CODE:
-        raise ValueError(f"unknown kernel variant {variant!r}")
-    if variant == "tc" and auto != "tc":
-        raise ValueError(f"the tensor-core kernels do not take {dtype}, "
-                         f"S={S}, A={A}, K={K}, F={F}, H={H}, R={R}")
-    return variant
+def _ready(t: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """``t`` contiguous and 16-byte aligned (a copy only where it is not)."""
+    if t is None:
+        return None
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _launch(name: str, variant: str, done, fn, *args) -> None:
+def _launch(name: str, done, fn, *args) -> None:
+    """Launch ``fn``; count it under NeurComm's keys, or DIAL's where the
+    call masks nothing (``done`` None)."""
     err = fn(*args)
     if err != 0:
-        raise RuntimeError(f"{name} ({variant}) kernel launch failed: "
-                           f"cudaError {err}")
-    _count(name, variant, done)
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    if done is None:
+        name = name.replace("comm_embed", "comm_embed_dial")
+    LAUNCHES[name] += 1
 
 
-def _ready_or_none(t, dtype, device, name):
-    return None if t is None else _ready(t, dtype, device, name)
-
-
-def comm_embed_fwd(obs, fp, h, done, w_obs, b_obs, w_fp, w_msg, nbr, rev, *,
-                   _variant: Optional[str] = None) -> torch.Tensor:
-    """Forward: e [B, N, F]. Launches the CUDA kernel for CUDA tensors
-    (which one: ``kernel_variant``, from every shape, so that the backward
-    takes the same), the plain twin for CPU tensors. ``fp`` with ``w_fp``,
-    and ``done``, may be None (no fingerprint term; h unmasked).
-    ``_variant`` is for tests and measurements; the model's path never
-    passes it."""
-    if h.device.type == "cpu":
-        return comm_embed_fwd_ref(obs, fp, h, done, w_obs, b_obs, w_fp,
-                                  w_msg, nbr)
-    if h.device.type != "cuda":
-        raise ValueError(f"comm_embed_fwd: unsupported device {h.device}")
-    if h.dtype not in _DTYPE_CODE:
-        raise TypeError(f"comm_embed kernels take float32 or bfloat16, got "
-                        f"{h.dtype}")
-    dims = _dims(obs, fp, h, done, w_msg, nbr, rev)
-    B, N, S, A, K, F, H = dims
+def comm_embed_fwd(obs, fp, h, done, w_obs, b_obs, w_fp, w_msg, nbr,
+                   rev) -> torch.Tensor:
+    """Forward: e [B, N, F]. Launches a CUDA kernel for CUDA tensors (the
+    tensor-core one where ``takes_tc`` accepts the call, from every shape,
+    so that the backward takes the same), the plain twin for CPU tensors.
+    ``fp`` with ``w_fp``, and ``done``, may be None (no fingerprint term; h
+    unmasked)."""
+    B, N, S, A, K, F, H = _dims("comm_embed_fwd", obs, fp, h, done, w_msg,
+                                nbr, rev, w_obs=w_obs, b_obs=b_obs,
+                                w_fp=w_fp)
     if w_obs.shape != (N, S, F) or b_obs.shape != (N, F) \
             or (w_fp is None) != (fp is None) \
             or (w_fp is not None and w_fp.shape != (N, K, A, F)):
         raise ValueError("comm_embed_fwd: inconsistent weight shapes")
     dev, dt = h.device, h.dtype
-    obs, fp, h, w_obs, b_obs, w_fp, w_msg = (
-        _ready_or_none(t, dt, dev, name) for t, name in (
-            (obs, "obs"), (fp, "fp"), (h, "h"), (w_obs, "w_obs"),
-            (b_obs, "b_obs"), (w_fp, "w_fp"), (w_msg, "w_msg")))
+    if dev.type == "cpu":
+        return comm_embed_fwd_ref(obs, fp, h, done, w_obs, b_obs, w_fp,
+                                  w_msg, nbr)
+    tc = takes_tc(dt, S, A, K, F, H, rev.shape[1])
+    obs, fp, h, w_obs, b_obs, w_fp, w_msg, nbr = map(
+        _ready, (obs, fp, h, w_obs, b_obs, w_fp, w_msg, nbr))
     if done is not None:
-        done = _ready(done.to(dt), dt, dev, "done")
-    nbr = _ready(nbr, torch.int32, dev, "nbr")
-    variant = _variant_for(dt, dims, rev.shape[1], _variant)
-    splits = 1
-    if variant == "tc":
-        splits = tc_splits(B, N, lstm_cell._sm_count(dev))
+        done = _ready(done.to(dt))
     e = torch.empty((B, N, F), dtype=dt, device=dev)
-    lib = _kernels()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _launch("comm_embed_fwd", variant, done, lib.comm_embed_fwd,
-                _DTYPE_CODE[dt], _VARIANT_CODE[variant], _ptr(obs), _ptr(fp),
-                _ptr(h), _ptr(done), _ptr(w_obs), _ptr(b_obs), _ptr(w_fp),
-                _ptr(w_msg), _ptr(nbr), _ptr(e), B, N, S, A, K, F, H, splits,
-                stream)
+        _launch("comm_embed_fwd", done, _kernels().comm_embed_fwd,
+                _DTYPE_CODE[dt], int(tc), _ptr(obs), _ptr(fp), _ptr(h),
+                _ptr(done), _ptr(w_obs), _ptr(b_obs), _ptr(w_fp), _ptr(w_msg),
+                _ptr(nbr), _ptr(e), B, N, S, A, K, F, H,
+                tc_splits(B, N, lstm_cell._sm_count(dev)) if tc else 1,
+                torch.cuda.current_stream(dev).cuda_stream)
     return e
 
 
-def comm_embed_bwd(obs, fp, h, done, w_msg, nbr, rev, e, de, *,
-                   _variant: Optional[str] = None):
+def comm_embed_bwd(obs, fp, h, done, w_msg, nbr, rev, e, de):
     """Backward: (dh, dw_obs, db_obs, dw_fp, dw_msg), all in the compute
-    dtype, the weight gradients views of one allocation (dw_fp None where
-    ``fp`` is). Launches one CUDA kernel for CUDA tensors, the plain twin
-    for CPU tensors."""
-    if h.device.type == "cpu":
-        return comm_embed_bwd_ref(obs, fp, h, done, w_msg, nbr, rev, e, de)
-    if h.device.type != "cuda":
-        raise ValueError(f"comm_embed_bwd: unsupported device {h.device}")
-    if h.dtype not in _DTYPE_CODE:
-        raise TypeError(f"comm_embed kernels take float32 or bfloat16, got "
-                        f"{h.dtype}")
-    dims = _dims(obs, fp, h, done, w_msg, nbr, rev)
-    B, N, S, A, K, F, H = dims
+    dtype (dw_fp None where ``fp`` is). Launches the CUDA backward of the
+    pair the forward took for CUDA tensors, the weight gradients views of
+    one allocation; the plain twin for CPU tensors."""
+    B, N, S, A, K, F, H = _dims("comm_embed_bwd", obs, fp, h, done, w_msg,
+                                nbr, rev, e=e, de=de)
     R = rev.shape[1]
     if e.shape != (B, N, F) or de.shape != (B, N, F):
         raise ValueError("comm_embed_bwd: inconsistent shapes")
     dev, dt = h.device, h.dtype
-    obs, fp, h, w_msg, e, de = (
-        _ready_or_none(t, dt, dev, name) for t, name in (
-            (obs, "obs"), (fp, "fp"), (h, "h"), (w_msg, "w_msg"), (e, "e"),
-            (de, "de")))
+    if dev.type == "cpu":
+        return comm_embed_bwd_ref(obs, fp, h, done, w_msg, nbr, rev, e, de)
+    tc = takes_tc(dt, S, A, K, F, H, R)
+    obs, fp, h, w_msg, nbr, rev, e, de = map(
+        _ready, (obs, fp, h, w_msg, nbr, rev, e, de))
     if done is not None:
-        done = _ready(done.to(dt), dt, dev, "done")
-    nbr = _ready(nbr, torch.int32, dev, "nbr")
-    rev = _ready(rev, torch.int32, dev, "rev")
-    variant = _variant_for(dt, dims, R, _variant)
-    splits = dh_splits(B, R) if variant == "tc" else 1
+        done = _ready(done.to(dt))
     dh = torch.empty((B, N, H), dtype=dt, device=dev)
-    # the tensor-core backward's g = de * (e > 0), formed once and read by
-    # its second kernel
-    g = torch.empty_like(e) if variant == "tc" else None
+    # the tensor-core backward's g = de * (e > 0), formed once by its first
+    # kernel and read by the second
+    g = torch.empty_like(e) if tc else None
     sizes = [N * S * F, N * F, N * K * A * F, N * K * H * F]
     flat = torch.empty(sum(sizes), dtype=dt, device=dev)
     dw_obs, db, dw_fp, dw_msg = (
@@ -341,15 +313,14 @@ def comm_embed_bwd(obs, fp, h, done, w_msg, nbr, rev, e, de, *,
             [(N, S, F), (N, F), (N, K, A, F), (N, K, H, F)]))
     if fp is None:
         dw_fp = None
-    lib = _kernels()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _launch("comm_embed_bwd", variant, done, lib.comm_embed_bwd,
-                _DTYPE_CODE[dt], _VARIANT_CODE[variant], _ptr(obs), _ptr(fp),
-                _ptr(h), _ptr(done), _ptr(w_msg), _ptr(nbr), _ptr(rev),
-                _ptr(e), _ptr(de), _ptr(g), _ptr(dh), _ptr(dw_obs), _ptr(db),
-                _ptr(dw_fp), _ptr(dw_msg), B, N, S, A, K, F, H, R, splits,
-                stream)
+        _launch("comm_embed_bwd", done, _kernels().comm_embed_bwd,
+                _DTYPE_CODE[dt], int(tc), _ptr(obs), _ptr(fp), _ptr(h),
+                _ptr(done), _ptr(w_msg), _ptr(nbr), _ptr(rev), _ptr(e),
+                _ptr(de), _ptr(g), _ptr(dh), _ptr(dw_obs), _ptr(db),
+                _ptr(dw_fp), _ptr(dw_msg), B, N, S, A, K, F, H, R,
+                dh_splits(B, R) if tc else 1,
+                torch.cuda.current_stream(dev).cuda_stream)
     return dh, dw_obs, db, dw_fp, dw_msg
 
 

@@ -20,17 +20,18 @@ reads; the backward's sums over B split over a thread-block cluster and
 added in a fixed order. It replaces no TPU kernel: XLA fuses the JAX
 package's einsum.
 
-Dispatch is by the tensors' device: CUDA tensors launch a kernel (and raise
-if a launch fails; there is no fallback), CPU tensors run the plain twins
-``dial_head_fwd_ref`` / ``dial_head_bwd_ref``, which keep the kernels'
-rounding points: the product accumulated in f32, masked and the bias added
-in f32, rounded once; the gradients summed in f32 and rounded once. On the
-card ``kernel_variant`` picks ``"tc"`` (bf16 on the tensor cores, where the
-LSTM cell takes its tensor-core kernel) or ``"general"`` (f32 FMAs on the
-CUDA cores: float32, and every other width), so that every packed DIAL call
-on a card runs a kernel. Launches are counted in ``LAUNCHES``:
-``dial_head_fwd`` / ``dial_head_bwd`` and per variant (``dial_head_fwd_tc``,
-...). A launch that a CUDA graph captures counts once, at the capture.
+Dispatch: CPU tensors run the plain twins ``dial_head_fwd_ref`` /
+``dial_head_bwd_ref``; CUDA tensors launch a kernel, and raise if a launch
+fails (there is no fallback): the tensor-core pair where ``takes_tc``
+accepts the widths (bf16, where the LSTM cell takes its tensor-core
+kernel), else the ``general`` pair (f32 FMAs on the CUDA cores: float32,
+and every other width), so that every packed DIAL call on a card runs one
+launch each way. Both paths make the same checks first. The twins keep the
+kernels' rounding points: the product accumulated in f32, masked and the
+bias added in f32, rounded once; the gradients summed in f32 and rounded
+once. Launches are counted in ``LAUNCHES``: ``dial_head_fwd`` /
+``dial_head_bwd``; which pair ran follows from ``takes_tc``. A launch that
+a CUDA graph captures counts once, at the capture.
 
 Shapes: h [B, N, H] (the unmasked carry), done [B] or None (no mask), w
 [N, H, D], b [N, D]; m and its gradient [B, N, D]. float32 or bfloat16, one
@@ -50,10 +51,8 @@ from deeprl_network_tpu_torch.ops.lstm_cell import (
     _DTYPE_CODE, _acc_dtype, _ptr,
 )
 
-LAUNCHES = {f"dial_head_{d}{v}": 0
-            for d in ("fwd", "bwd") for v in ("", "_tc", "_general")}
+LAUNCHES = {"dial_head_fwd": 0, "dial_head_bwd": 0}
 
-_VARIANT_CODE = {"general": 0, "tc": 1}
 _BT = 64            # rows of a tile, kBT in dial_head.cu
 _MAX_CLUSTER = 8    # kMaxCluster: the portable cluster size
 _lib: Optional[ctypes.CDLL] = None
@@ -105,12 +104,12 @@ def dial_head_bwd_ref(h, done, w, dm):
     return dh.to(dt).contiguous(), dw.contiguous(), g.sum(0).to(dt)
 
 
-def kernel_variant(dtype: torch.dtype, H: int, D: int) -> str:
-    """Which kernel a CUDA call takes, from what the call can see: the LSTM
-    cell's rule (``lstm_cell.kernel_variant``) over the head's widths:
-    ``"tc"`` for bfloat16 with H and D multiples of 16, at most 64; else
-    ``"general"``."""
-    return lstm_cell.kernel_variant(dtype, D, H)
+def takes_tc(dtype: torch.dtype, H: int, D: int) -> bool:
+    """Whether a CUDA call launches the tensor-core kernels, from what the
+    call can see: the LSTM cell's rule (``lstm_cell.kernel_variant``) over
+    the head's widths, bfloat16 with H and D multiples of 16, at most 64.
+    Every other CUDA call launches the ``general`` kernels."""
+    return lstm_cell.kernel_variant(dtype, D, H) == "tc"
 
 
 def bwd_cluster(B: int) -> int:
@@ -120,11 +119,6 @@ def bwd_cluster(B: int) -> int:
     tiles = -(-B // _BT)
     per = -(-tiles // _MAX_CLUSTER)
     return -(-tiles // per)
-
-
-def _count(name: str, variant: str) -> None:
-    LAUNCHES[name] += 1
-    LAUNCHES[f"{name}_{variant}"] += 1
 
 
 def _check(name: str, h, done, w, b=None):
@@ -164,71 +158,54 @@ def _ready(t: torch.Tensor, dtype) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _variant_for(dtype, H, D, _variant):
-    auto = kernel_variant(dtype, H, D)
-    variant = auto if _variant is None else _variant
-    if variant not in _VARIANT_CODE:
-        raise ValueError(f"unknown kernel variant {variant!r}")
-    if variant == "tc" and auto != "tc":
-        raise ValueError(f"the tensor-core kernels do not take {dtype}, "
-                         f"H={H}, D={D}")
-    return variant
-
-
-def _launch(name: str, variant: str, fn, *args) -> None:
+def _launch(name: str, fn, *args) -> None:
     err = fn(*args)
     if err != 0:
-        raise RuntimeError(f"{name} ({variant}) kernel launch failed: "
-                           f"cudaError {err}")
-    _count(name, variant)
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+    LAUNCHES[name] += 1
 
 
-def dial_head_fwd(h, done, w, b, *, _variant: Optional[str] = None
-                  ) -> torch.Tensor:
-    """Forward: m [B, N, D], contiguous. Launches the CUDA kernel for CUDA
-    tensors (which one: ``kernel_variant``), the plain twin for CPU
-    tensors. ``_variant`` is for tests and measurements; the model's path
-    never passes it."""
+def dial_head_fwd(h, done, w, b) -> torch.Tensor:
+    """Forward: m [B, N, D], contiguous. Launches a CUDA kernel for CUDA
+    tensors (the tensor-core one where ``takes_tc`` accepts the widths), the
+    plain twin for CPU tensors."""
     B, N, H, D = _check("dial_head_fwd", h, done, w, b)
-    if h.device.type == "cpu":
-        return dial_head_fwd_ref(h, done, w, b)
     dev, dt = h.device, h.dtype
-    variant = _variant_for(dt, H, D, _variant)
+    if dev.type == "cpu":
+        return dial_head_fwd_ref(h, done, w, b)
+    tc = takes_tc(dt, H, D)
     h, w, b = (_ready(t, dt) for t in (h, w, b))
     done = None if done is None else _ready(done, dt)
     m = torch.empty((B, N, D), dtype=dt, device=dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _launch("dial_head_fwd", variant, _kernels().dial_head_fwd,
-                _DTYPE_CODE[dt], _VARIANT_CODE[variant], _ptr(h), _ptr(done),
-                _ptr(w), _ptr(b), _ptr(m), B, N, H, D, stream)
+        _launch("dial_head_fwd", _kernels().dial_head_fwd, _DTYPE_CODE[dt],
+                int(tc), _ptr(h), _ptr(done), _ptr(w), _ptr(b), _ptr(m), B,
+                N, H, D, torch.cuda.current_stream(dev).cuda_stream)
     return m
 
 
-def dial_head_bwd(h, done, w, dm, *, _variant: Optional[str] = None
+def dial_head_bwd(h, done, w, dm
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Backward: (dh, dw, db) in the compute dtype, dw and db views of one
-    allocation. One launch for CUDA tensors, the plain twin for CPU
-    tensors."""
+    allocation. One launch of the pair the forward took for CUDA tensors,
+    the plain twin for CPU tensors."""
     B, N, H, D = _check("dial_head_bwd", h, done, w)
     if dm.shape != (B, N, D):
         raise ValueError("dial_head_bwd: inconsistent shapes")
-    if h.device.type == "cpu":
-        return dial_head_bwd_ref(h, done, w, dm)
     dev, dt = h.device, h.dtype
-    variant = _variant_for(dt, H, D, _variant)
+    if dev.type == "cpu":
+        return dial_head_bwd_ref(h, done, w, dm)
+    tc = takes_tc(dt, H, D)
     h, w, dm = (_ready(t, dt) for t in (h, w, dm))
     done = None if done is None else _ready(done, dt)
     dh = torch.empty((B, N, H), dtype=dt, device=dev)
     flat = torch.empty(N * H * D + N * D, dtype=dt, device=dev)
     dw, db = flat[:N * H * D].view(N, H, D), flat[N * H * D:].view(N, D)
-    cluster = bwd_cluster(B) if variant == "tc" else 1
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        _launch("dial_head_bwd", variant, _kernels().dial_head_bwd,
-                _DTYPE_CODE[dt], _VARIANT_CODE[variant], _ptr(h), _ptr(done),
-                _ptr(w), _ptr(dm), _ptr(dh), _ptr(dw), _ptr(db), B, N, H, D,
-                cluster, stream)
+        _launch("dial_head_bwd", _kernels().dial_head_bwd, _DTYPE_CODE[dt],
+                int(tc), _ptr(h), _ptr(done), _ptr(w), _ptr(dm), _ptr(dh),
+                _ptr(dw), _ptr(db), B, N, H, D, bwd_cluster(B) if tc else 1,
+                torch.cuda.current_stream(dev).cuda_stream)
     return dh, dw, db
 
 

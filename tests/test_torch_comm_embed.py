@@ -457,22 +457,22 @@ def test_wrapper_refuses_obs_with_gradient_and_detaches_fp():
 
 
 def test_kernel_variant_and_shared_memory():
-    """``tc`` where the LSTM cell takes its tensor-core kernel and the
+    """``takes_tc`` where the LSTM cell takes its tensor-core kernel and the
     [obs | 1 | fp] columns fit 64 (DIAL's call has no fp columns); at the
     flagship's sizes one forward block and two backward blocks fit an SM;
-    float32, odd widths, wide fingerprints and large in-degrees go to
-    ``general``."""
+    float32, odd widths, wide fingerprints and large in-degrees take the
+    ``general`` kernels."""
     bf, f32 = torch.bfloat16, torch.float32
-    assert ce.kernel_variant(bf, 12, 5, 4, 64, 64, 4) == "tc"
-    assert ce.kernel_variant(bf, 12, 0, 4, 64, 64, 4) == "tc"
-    assert ce.kernel_variant(f32, 12, 0, 4, 64, 64, 4) == "general"
-    assert ce.kernel_variant(bf, 12, 6, 4, 64, 64, 4) == "tc"
-    assert ce.kernel_variant(bf, 12, 5, 4, 16, 16, 4) == "tc"
-    assert ce.kernel_variant(f32, 12, 5, 4, 64, 64, 4) == "general"
-    assert ce.kernel_variant(bf, 12, 5, 4, 8, 8, 4) == "general"
-    assert ce.kernel_variant(bf, 12, 5, 4, 64, 128, 4) == "general"
-    assert ce.kernel_variant(bf, 40, 6, 4, 64, 64, 4) == "general"
-    assert ce.kernel_variant(bf, 12, 5, 4, 64, 64, 40) == "general"
+    assert ce.takes_tc(bf, 12, 5, 4, 64, 64, 4)
+    assert ce.takes_tc(bf, 12, 0, 4, 64, 64, 4)
+    assert not ce.takes_tc(f32, 12, 0, 4, 64, 64, 4)
+    assert ce.takes_tc(bf, 12, 6, 4, 64, 64, 4)
+    assert ce.takes_tc(bf, 12, 5, 4, 16, 16, 4)
+    assert not ce.takes_tc(f32, 12, 5, 4, 64, 64, 4)
+    assert not ce.takes_tc(bf, 12, 5, 4, 8, 8, 4)
+    assert not ce.takes_tc(bf, 12, 5, 4, 64, 128, 4)
+    assert not ce.takes_tc(bf, 40, 6, 4, 64, 64, 4)
+    assert not ce.takes_tc(bf, 12, 5, 4, 64, 64, 40)
     fwd, bwd = ce.tc_shared_bytes(12, 5, 4, 64, 64, 4)
     assert fwd == (304 * 72 * 2 + 3 * (64 * 312 * 2 + 64 * 72 * 2 + 128)
                    + 16 + 80)
@@ -501,21 +501,22 @@ def test_wrapper_refuses_other_devices_and_dtypes():
 # ---------------------------------------------------------------- the card
 
 CARD_CASES = [
-    # (name, graph, B, n_s, n_a, width, dtype, variant); n_a 0: DIAL's
-    # call (no fingerprint term, its messages unmasked)
-    ("flagship", "grid25", 768, 12, 5, 64, torch.bfloat16, "tc"),
-    ("monaco_768", "monaco28", 768, 12, 6, 64, torch.bfloat16, "tc"),
-    ("ragged_k5", "random_k5", 37, 7, 3, 32, torch.bfloat16, "tc"),
-    ("eval_b1", "grid25", 1, 12, 5, 64, torch.float32, "general"),
-    ("widths_8", "grid25", 8, 12, 5, 8, torch.float32, "general"),
-    ("ragged_k5_f32", "random_k5", 37, 7, 3, 16, torch.float32, "general"),
-    ("flagship_bf16_general", "grid25", 100, 12, 5, 64, torch.bfloat16,
-     "general"),
-    ("dial_flagship", "grid25", 768, 12, 0, 64, torch.bfloat16, "tc"),
-    ("dial_ragged_k5", "random_k5", 37, 7, 0, 32, torch.bfloat16, "tc"),
-    ("dial_eval_b1", "grid25", 1, 12, 0, 64, torch.float32, "general"),
-    ("dial_flagship_f32", "grid25", 768, 12, 0, 64, torch.float32,
-     "general"),
+    # (name, graph, B, n_s, n_a, width, dtype, tc); n_a 0: DIAL's call (no
+    # fingerprint term, its messages unmasked); tc: whether ``takes_tc``
+    # accepts the call (else the ``general`` kernels run)
+    ("flagship", "grid25", 768, 12, 5, 64, torch.bfloat16, True),
+    ("monaco_768", "monaco28", 768, 12, 6, 64, torch.bfloat16, True),
+    ("ragged_k5", "random_k5", 37, 7, 3, 32, torch.bfloat16, True),
+    ("eval_b1", "grid25", 1, 12, 5, 64, torch.float32, False),
+    ("widths_8", "grid25", 8, 12, 5, 8, torch.float32, False),
+    ("ragged_k5_f32", "random_k5", 37, 7, 3, 16, torch.float32, False),
+    # bf16 outside the tensor-core rule: twice the flagship's width
+    ("flagship_bf16_general", "grid25", 100, 12, 5, 128, torch.bfloat16,
+     False),
+    ("dial_flagship", "grid25", 768, 12, 0, 64, torch.bfloat16, True),
+    ("dial_ragged_k5", "random_k5", 37, 7, 0, 32, torch.bfloat16, True),
+    ("dial_eval_b1", "grid25", 1, 12, 0, 64, torch.float32, False),
+    ("dial_flagship_f32", "grid25", 768, 12, 0, 64, torch.float32, False),
 ]
 CARD_TOL = {torch.float32: (1e-5, 1e-4), torch.bfloat16: (0.05, 0.05)}
 
@@ -552,17 +553,16 @@ def _close(got, want, tol, what):
 @needs_cuda
 @pytest.mark.parametrize("case", CARD_CASES, ids=[c[0] for c in CARD_CASES])
 def test_cuda_kernels_match_twin(case):
-    """Each kernel against the twin on the card, forward and backward,
-    with the variant that the rule (or the case) gives; the launch counts
-    move by one each, under DIAL's keys for DIAL's call; two backward calls
-    are bitwise equal."""
-    name, graph, B, n_s, n_a, width, dtype, variant = case
+    """Each kernel against the twin on the card, forward and backward, the
+    pair ``takes_tc`` picks being the case's; the launch counts move by one
+    a call, under DIAL's keys for DIAL's call; two backward calls are
+    bitwise equal."""
+    name, graph, B, n_s, n_a, width, dtype, tc = case
     fwd = _card_args(graph, B, n_s, n_a, width, dtype)
-    forced = {} if variant == ce.kernel_variant(
-        dtype, n_s, n_a, fwd[8].shape[1], width, width, fwd[9].shape[1]) \
-        else dict(_variant=variant)
+    assert ce.takes_tc(dtype, n_s, n_a, fwd[8].shape[1], width, width,
+                       fwd[9].shape[1]) == tc
     before = dict(ce.LAUNCHES)
-    e = ce.comm_embed_fwd(*fwd, **forced)
+    e = ce.comm_embed_fwd(*fwd)
     want = ce.comm_embed_fwd_ref(*fwd[:9])
     torch.cuda.synchronize()
     tol_f, tol_b = CARD_TOL[dtype]
@@ -571,9 +571,9 @@ def test_cuda_kernels_match_twin(case):
     de = torch.randn(e.shape, device="cuda", generator=g).to(dtype)
     obs, fp, h, done, _, _, _, w_msg, nbr, rev = fwd
     bwd = (obs, fp, h, done, w_msg, nbr, rev, want, de)
-    got_b = ce.comm_embed_bwd(*bwd, **forced)
+    got_b = ce.comm_embed_bwd(*bwd)
     want_b = ce.comm_embed_bwd_ref(*bwd)
-    again = ce.comm_embed_bwd(*bwd, **forced)
+    again = ce.comm_embed_bwd(*bwd)
     torch.cuda.synchronize()
     for what, a, b, c in zip(("dh", "dw_obs", "db_obs", "dw_fp", "dw_msg"),
                              got_b, want_b, again):
@@ -585,8 +585,7 @@ def test_cuda_kernels_match_twin(case):
     moved = {k: v - before[k] for k, v in ce.LAUNCHES.items()
              if v != before[k]}
     base = "comm_embed" if n_a else "comm_embed_dial"
-    assert moved == {f"{base}_fwd": 1, f"{base}_fwd_{variant}": 1,
-                     f"{base}_bwd": 2, f"{base}_bwd_{variant}": 2}
+    assert moved == {f"{base}_fwd": 1, f"{base}_bwd": 2}
 
 
 @needs_cuda

@@ -3,7 +3,7 @@ its plain twins through the ``autograd.Function`` against the PyTorch ops it
 replaces (the done mask, the einsum, the bias add and their autograd) in f32
 and bf16, with rows done, with no ``done`` and at batch sizes that do not
 fill a tile; ``_embed``'s packed-DIAL path against the dense DIAL einsums;
-the pure functions of the dispatch (variant, cluster, shared memory); the
+the pure functions of the dispatch (the tensor-core rule, the cluster); the
 wrapper's refusals; and, on a card (``needs_cuda``), the CUDA kernels against
 the twins and the Function's gradients against the replaced ops' own
 autograd, a bitwise deterministic backward, the launch counts of a captured
@@ -201,17 +201,17 @@ def test_embed_packed_dial_matches_dense_einsums(monkeypatch, graph, done):
 
 
 def test_kernel_variant_and_cluster():
-    """``tc`` where the LSTM cell takes its tensor-core kernel (bf16, H and
-    D multiples of 16, at most 64), ``general`` for float32 and every other
-    width; the backward's cluster gives no block more tiles than eight
-    blocks would."""
+    """``takes_tc`` where the LSTM cell takes its tensor-core kernel (bf16,
+    H and D multiples of 16, at most 64), not for float32 or any other
+    width (those take the ``general`` kernels); the backward's cluster
+    gives no block more tiles than eight blocks would."""
     bf, f32 = torch.bfloat16, torch.float32
-    assert dh.kernel_variant(bf, 64, 64) == "tc"
-    assert dh.kernel_variant(bf, 16, 48) == "tc"
-    assert dh.kernel_variant(f32, 64, 64) == "general"
-    assert dh.kernel_variant(bf, 64, 8) == "general"
-    assert dh.kernel_variant(bf, 128, 64) == "general"
-    assert dh.kernel_variant(bf, 24, 64) == "general"
+    assert dh.takes_tc(bf, 64, 64)
+    assert dh.takes_tc(bf, 16, 48)
+    assert not dh.takes_tc(f32, 64, 64)
+    assert not dh.takes_tc(bf, 64, 8)
+    assert not dh.takes_tc(bf, 128, 64)
+    assert not dh.takes_tc(bf, 24, 64)
     assert [dh.bwd_cluster(B) for B in (1, 64, 65, 384, 768, 1024, 1025,
                                         4096)] == [1, 1, 2, 6, 6, 8, 6, 8]
     for B in range(1, 3000, 37):
@@ -268,36 +268,37 @@ def test_done_gets_no_gradient():
 # ---------------------------------------------------------------- the card
 
 CARD_CASES = [
-    # (name, B, N, H, D, dtype, done, variant)
-    ("flagship", 768, 25, 64, 64, torch.bfloat16, "some", "tc"),
-    ("flagship_no_done", 768, 25, 64, 64, torch.bfloat16, "none", "tc"),
-    ("flagship_all_done", 768, 25, 64, 64, torch.bfloat16, "all", "tc"),
-    ("ragged_37", 37, 7, 32, 48, torch.bfloat16, "some", "tc"),
-    ("ragged_1025", 1025, 3, 48, 16, torch.bfloat16, "some", "tc"),
-    ("widths_16", 4, 25, 16, 16, torch.bfloat16, "some", "tc"),
-    ("eval_b1", 1, 25, 64, 64, torch.float32, "some", "general"),
-    ("flagship_f32", 768, 25, 64, 64, torch.float32, "some", "general"),
-    ("odd_f32", 37, 5, 24, 40, torch.float32, "none", "general"),
-    ("flagship_bf16_general", 100, 25, 64, 64, torch.bfloat16, "some",
-     "general"),
+    # (name, B, N, H, D, dtype, done, tc); tc: whether ``takes_tc`` accepts
+    # the widths (else the ``general`` kernels run)
+    ("flagship", 768, 25, 64, 64, torch.bfloat16, "some", True),
+    ("flagship_no_done", 768, 25, 64, 64, torch.bfloat16, "none", True),
+    ("flagship_all_done", 768, 25, 64, 64, torch.bfloat16, "all", True),
+    ("ragged_37", 37, 7, 32, 48, torch.bfloat16, "some", True),
+    ("ragged_1025", 1025, 3, 48, 16, torch.bfloat16, "some", True),
+    ("widths_16", 4, 25, 16, 16, torch.bfloat16, "some", True),
+    ("eval_b1", 1, 25, 64, 64, torch.float32, "some", False),
+    ("flagship_f32", 768, 25, 64, 64, torch.float32, "some", False),
+    ("odd_f32", 37, 5, 24, 40, torch.float32, "none", False),
+    # bf16 outside the tensor-core rule: twice the flagship's widths
+    ("flagship_bf16_general", 100, 25, 128, 128, torch.bfloat16, "some",
+     False),
 ]
 
 
 @needs_cuda
 @pytest.mark.parametrize("case", CARD_CASES, ids=[c[0] for c in CARD_CASES])
 def test_cuda_kernels_match_twin(case):
-    """Each kernel against its twin on the card, forward and backward, with
-    the variant that the rule (or the case) gives; the launch counts move by
-    one a call; two backward calls are bitwise equal."""
-    name, B, N, H, D, dtype, done, variant = case
+    """Each kernel against its twin on the card, forward and backward, the
+    pair ``takes_tc`` picks being the case's; the launch counts move by one
+    a call; two backward calls are bitwise equal."""
+    name, B, N, H, D, dtype, done, tc = case
     h, flags, w, b = _inputs(B, N, H, D, done, dtype=dtype, device="cuda")
-    forced = {} if variant == dh.kernel_variant(dtype, H, D) \
-        else dict(_variant=variant)
+    assert dh.takes_tc(dtype, H, D) == tc
     before = dict(dh.LAUNCHES)
-    m = dh.dial_head_fwd(h, flags, w, b, **forced)
+    m = dh.dial_head_fwd(h, flags, w, b)
     cot = _cot(B, N, D, dtype, "cuda")
-    got = dh.dial_head_bwd(h, flags, w, cot, **forced)
-    again = dh.dial_head_bwd(h, flags, w, cot, **forced)
+    got = dh.dial_head_bwd(h, flags, w, cot)
+    again = dh.dial_head_bwd(h, flags, w, cot)
     torch.cuda.synchronize()
     tol_f, tol_b = TOL[dtype]
     _close(m, dh.dial_head_fwd_ref(h, flags, w, b), tol_f, f"{name} m")
@@ -309,8 +310,7 @@ def test_cuda_kernels_match_twin(case):
         assert torch.equal(a, c), f"{name} {what} differs between calls"
     moved = {k: v - before[k] for k, v in dh.LAUNCHES.items()
              if v != before[k]}
-    assert moved == {"dial_head_fwd": 1, f"dial_head_fwd_{variant}": 1,
-                     "dial_head_bwd": 2, f"dial_head_bwd_{variant}": 2}
+    assert moved == {"dial_head_fwd": 1, "dial_head_bwd": 2}
 
 
 @needs_cuda
@@ -405,7 +405,6 @@ def test_cuda_dial_update_counts_the_head():
             assert moved == {}
             continue
         assert moved == {"dial_head_fwd": 2 * (2 * T + 1),
-                         "dial_head_fwd_tc": 2 * (2 * T + 1),
-                         "dial_head_bwd": 2 * T, "dial_head_bwd_tc": 2 * T}
+                         "dial_head_bwd": 2 * T}
         assert ce.LAUNCHES["comm_embed_dial_fwd"] \
             - before_ce["comm_embed_dial_fwd"] == 2 * (2 * T + 1)
