@@ -33,7 +33,14 @@ Phases (any failure raises, exits non-zero and prints no result line):
      beside it; times of the grid and Monaco at B=768, 32 and 1 and of the
      10x10 grid at B=128 from graph replays (warm and cold), the host's time
      a call and the twin's, and the bound, each with its launch shape,
-     registers a thread and blocks an SM;
+     registers a thread and blocks an SM; then the CACC platoon's step with
+     auto-reset (``ops/csrc/cacc_env.cu``) against its plain twin in
+     lockstep over 1,500 steps (the horizon and collisions crossed), every
+     output bit for bit but info's two means (within 2 ulp): catch-up at
+     the platoon cell's B=64, slow-down at the files' B=32 and at B=512; its
+     times at B=64 and 32 beside the twin's, the generic ``AutoResetEnv``
+     path's it replaced and ``step_autoreset``'s (both with the draws), the
+     kernels each of those two runs a step, and the bound;
   5. comm embed: the NeurComm embedding over packed neighbour lists
      (``ops/csrc/comm_embed.cu``) against its plain twin, forward and
      backward, the backward bitwise equal across two calls, launch counts
@@ -61,9 +68,9 @@ Phases (any failure raises, exits non-zero and prints no result line):
      counts (launches issued or captured: the capture's warm-up and the
      capture, two updates' worth) and the kernels that ran on the card, by
      name (the warm-up and four replays, five updates' worth), each
-     asserted (from here on every phase asserts the env kernel's launches
-     beside the cell's: one a control step of an ATSC env, T an update, none
-     on the platoon);
+     asserted (from here on every phase asserts the env kernels' launches
+     beside the cell's: one a control step of an ATSC env, T an update, and
+     one a step of the platoon's update);
   8. graph: ``make_a2c``'s ``jit`` (the default), each update one replay of a
      CUDA graph: from one ``init_state(0)`` cloned both ways, 3 updates
      through the graph against 3 eager ones (``jit=False``), every state
@@ -507,6 +514,15 @@ def tune_kernels():
 
 ENV_SOURCE = "deeprl_network_tpu_torch/ops/csrc/network_env.cu"
 ENV_REPLACES = "deeprl_network_tpu/envs/network.py:216"
+CACC_ENV_SOURCE = "deeprl_network_tpu_torch/ops/csrc/cacc_env.cu"
+CACC_ENV_REPLACES = ("none: XLA fuses deeprl_network_tpu/envs/cacc.py "
+                     "CACCEnv.step and the auto-reset's select")
+# the platoon env kernel's lockstep cases (scenario, v_target, B): the
+# platoon cell's catch-up at B = 64, the files' slow-down at B = 32, and
+# B = 512; its timed B: the cell's and the files'
+CACC_ENV_CASES = (("catchup", "profile", 64), ("slowdown", "profile", 32),
+                  ("slowdown", "fixed", 512))
+CACC_ENV_TIMED = (64, 32)
 # the env kernel phase's lockstep cases: (name, topology, EnvConfig fields,
 # B, control steps, auto-reset, a rank's rows (offset, total) or None)
 ENV_CASES = (
@@ -663,6 +679,152 @@ def check_env_kernel(card):
                              bound_by=bound_by)
         del env
     log(f"env kernel: phase {time.perf_counter() - t_phase:.1f} s")
+    return entry
+
+
+def cacc_env_bytes(B, n, draws):
+    """Bytes one auto-reset platoon step must move for B platoons of n
+    vehicles with ``draws`` uniforms a vehicle: h, v, the actions, t,
+    v_lead and the uniforms read once; the state (h, v, u, v_lead, t, done),
+    obs, reward, done, collision and info's two means written once."""
+    read = B * (n * (4 + 4 + 8 + 4 * draws) + 8 + 4)
+    write = B * (n * (3 * 4 + 4 * 4 + 4) + 4 + 8 + 3 * 1 + 2 * 4)
+    return read + write
+
+
+def same_bits(got, want, what, ulp_keys=()):
+    """Raise unless the tensors of two steps agree bit for bit (``ulp_keys``
+    within 2 ulp); ``got`` and ``want`` are lists of (name, tensor). Returns
+    the largest absolute difference over every tensor (0 where the bits
+    agree, NaN included)."""
+    import torch
+    worst = 0.0
+    for (name, a), (_, b) in zip(got, want):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"{what} {name}: {a.dtype} {tuple(a.shape)}"
+                                 f" against {b.dtype} {tuple(b.shape)}")
+        if not a.numel():
+            continue
+        ia, ib = a, b
+        if a.dtype == torch.float32:
+            ia, ib = a.view(torch.int32), b.view(torch.int32)
+        ulp = int((ia.long() - ib.long()).abs().max())
+        if ulp > (2 if name in ulp_keys else 0):
+            raise AssertionError(f"{what} {name}: {ulp} apart")
+        if ulp:
+            diff = (a.double() - b.double()).abs()
+            worst = max(worst, float(torch.where(ia == ib, 0.0, diff).max()))
+    return worst
+
+
+def cacc_outputs(out):
+    """(name, tensor) of one platoon step with auto-reset."""
+    from deeprl_network_tpu_torch.ops.cacc_env import INFO_KEYS
+    state, obs, reward, done, info = out
+    return (list(zip(state._fields, state))
+            + [("obs", obs), ("reward", reward), ("done", done)]
+            + [(k, info[k]) for k in INFO_KEYS])
+
+
+def check_cacc_env_kernel(card):
+    """The platoon's env kernel against its plain twin on the card, in
+    lockstep (each step from the kernel's state, the same actions and
+    uniforms; every third platoon takes no control, which runs it into its
+    predecessor on the slow-down ramp) over 1,500 steps at a horizon of 200
+    in every ``CACC_ENV_CASES`` case: every output bit for bit, info's two
+    means (logged, in no loss) within 2 ulp; the entry's ``max_abs_err`` is
+    the largest difference of the platoon cell's case (catch-up, B=64),
+    means included. Then its times at
+    ``CACC_ENV_TIMED`` on the cell's configuration: the kernel (warm, cold,
+    the host's call), the twin, ``step_autoreset`` (the draws and the
+    launch) and the generic ``AutoResetEnv`` path it replaced (draws, step,
+    reset, selects), each with the kernels it runs a step. Returns the
+    kernels line's entry."""
+    import torch
+    from deeprl_network_tpu_torch.config import EnvConfig
+    from deeprl_network_tpu_torch.envs.cacc import CACCEnv
+    from deeprl_network_tpu_torch.envs.wrappers import AutoResetEnv
+    from deeprl_network_tpu_torch.ops import cacc_env as ce
+    t_phase = time.perf_counter()
+    means = ("headway_err", "velocity_err")
+    errs = {}
+    for scenario, v_target, B in CACC_ENV_CASES:
+        env = CACCEnv(EnvConfig(scenario=f"cacc_{scenario}",
+                                v_target=v_target, episode_length=200),
+                      device="cuda")
+        gen = torch.Generator(device="cuda").manual_seed(B)
+        state, _ = env.reset(B, gen)
+        reckless = (torch.arange(B, device="cuda") % 3 == 0)[:, None]
+        n_done = n_collided = 0
+        err = 0.0
+        for t in range(1500):
+            a = torch.randint(0, 4, (B, 8), device="cuda", generator=gen)
+            a = torch.where(reckless, torch.zeros_like(a), a)
+            u_h, u_v = (torch.rand((B, 8), device="cuda", generator=gen)
+                        for _ in range(2))
+            got = ce.cacc_env_step(env.kernel_args, state, a, u_h, u_v)
+            want = env.step_autoreset_ref(state, a, u_h, u_v)
+            err = max(err, same_bits(
+                cacc_outputs(got), cacc_outputs(want),
+                f"cacc env kernel {scenario} {v_target} b{B} step {t}",
+                means))
+            n_done += int(got[3].sum())
+            n_collided += int(got[4]["collision"].sum())
+            state = got[0]
+        if n_collided == 0 or n_done <= n_collided:
+            raise AssertionError(f"cacc env kernel {scenario} b{B}: "
+                                 f"{n_collided} collisions, {n_done} done")
+        log("cacc_env_kernel_check " + json.dumps({
+            "scenario": scenario, "v_target": v_target, "B": B,
+            "steps": 1500, "rows_done": n_done, "collisions": n_collided,
+            "bitwise_but_means": True, "max_abs_err": err}))
+        errs[scenario, B] = err
+    flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+    entry = None
+    env = CACCEnv(EnvConfig(scenario="cacc_catchup"), device="cuda")
+    ops_env = CACCEnv(EnvConfig(scenario="cacc_catchup"), device="cuda")
+    ops_env.step = CACCEnv.step.__get__(ops_env)      # the generic path
+    fused, generic = AutoResetEnv(env), AutoResetEnv(ops_env)
+    for B in CACC_ENV_TIMED:
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        state, _ = env.reset(B, gen)
+        for _ in range(30):       # platoons under way
+            a = torch.randint(0, 4, (B, 8), device="cuda", generator=gen)
+            state = fused.step(state, a, gen)[0]
+        u_h, u_v = (torch.rand((B, 8), device="cuda", generator=gen)
+                    for _ in range(2))
+        kernel = lambda: ce.cacc_env_step(env.kernel_args, state, a, u_h,
+                                          u_v)
+        plain = lambda: env.step_autoreset_ref(state, a, u_h, u_v)
+        new = lambda: fused.step(state, a)
+        ops = lambda: generic.step(state, a)
+        nbytes = cacc_env_bytes(B, 8, 2)
+        bound_ms, bound_by = bound(nbytes, 0, "float32")
+        row = {"shape": f"cacc b{B}", "ms": graph_ms(kernel),
+               "cold_ms": graph_ms(kernel, flush=flush),
+               "call_ms": host_call_ms(kernel),
+               "plain_ms": graph_ms(plain, n=5),
+               "plain_call_ms": host_call_ms(plain, n=20),
+               "step_autoreset_ms": graph_ms(new),
+               "step_autoreset_call_ms": host_call_ms(new),
+               "ops_ms": graph_ms(ops, n=5),
+               "ops_call_ms": host_call_ms(ops, n=20), "bytes": nbytes,
+               "bound_ms": bound_ms, "bound_by": bound_by, "card": card}
+        log("cacc_env_kernel_time " + json.dumps(row))
+        if B == 64:
+            entry = dict(max_abs_err=errs["catchup", 64], ms=row["ms"],
+                         plain_ms=row["plain_ms"], bound_ms=bound_ms,
+                         bound_by=bound_by)
+    # counted after the times: a trace slows later CUDA calls of the process
+    nodes = {}
+    for name, fn in (("step_autoreset", new), ("ops", ops)):
+        fn()
+        with traced() as prof:
+            fn()
+        nodes[name] = sum(e.device for e in events(prof))
+    log("cacc_env_kernel_nodes " + json.dumps(
+        {"kernels_copies_sets_a_step": nodes}))
+    log(f"cacc env kernel: phase {time.perf_counter() - t_phase:.1f} s")
     return entry
 
 
@@ -1060,13 +1222,15 @@ def make_cacc(path, device, env_kw=None, **overrides):
 
 
 def wrapper_counts():
-    """Every wrapper's launch counts: the LSTM cell, the env step, the
-    comm embedding and DIAL's message head."""
+    """Every wrapper's launch counts: the LSTM cell, the env steps (ATSC
+    and platoon), the comm embedding and DIAL's message head."""
+    from deeprl_network_tpu_torch.ops import cacc_env
     from deeprl_network_tpu_torch.ops import comm_embed as ce
     from deeprl_network_tpu_torch.ops import dial_head as dh
     from deeprl_network_tpu_torch.ops import lstm_cell as lc
     from deeprl_network_tpu_torch.ops import network_env as ne
-    return (lc.LAUNCHES, ne.LAUNCHES, ce.LAUNCHES, dh.LAUNCHES)
+    return (lc.LAUNCHES, ne.LAUNCHES, cacc_env.LAUNCHES, ce.LAUNCHES,
+            dh.LAUNCHES)
 
 
 def zero_counts():
@@ -1088,9 +1252,11 @@ def card_view(counts):
     return out
 
 
-def expect_counts(what, fwd, bwd, variant, env, got=None, embed=False):
+def expect_counts(what, fwd, bwd, variant, env, got=None, embed=False,
+                  cacc=0):
     """Raise unless ``got`` holds ``fwd`` forward and ``bwd`` backward cell
-    launches, all of ``variant``, and ``env`` env-step launches; with
+    launches, all of ``variant``, ``env`` ATSC env-step launches and
+    ``cacc`` platoon env-step launches; with
     ``embed`` (True: MA2C_NC over packed neighbour lists; "dial": MA2C_DIAL,
     under DIAL's keys, and as many of its message head's) as many
     comm-embedding launches as cell launches, else none; returns the
@@ -1101,7 +1267,7 @@ def expect_counts(what, fwd, bwd, variant, env, got=None, embed=False):
     want = {k: 0 for c in wrapper_counts() for k in c}
     want.update({"lstm_cell_fwd": fwd, f"lstm_cell_fwd_{variant}": fwd,
                  "lstm_cell_bwd": bwd, f"lstm_cell_bwd_{variant}": bwd,
-                 "network_env_step": env})
+                 "network_env_step": env, "cacc_env_step": cacc})
     if embed:
         base = "comm_embed_dial" if embed == "dial" else "comm_embed"
         for b in (base, "dial_head") if embed == "dial" else (base,):
@@ -1124,6 +1290,7 @@ KERNEL_OF = {"lstm_cell_fwd_tc": "lstm_tc_fwd_kernel",
              "lstm_cell_fwd_general": "lstm_fwd_kernel",
              "lstm_cell_bwd_general": "lstm_bwd_act_kernel",
              "network_env_step": "network_env_kernel",
+             "cacc_env_step": "cacc_env_kernel",
              "comm_embed_fwd": "comm_embed_(?:tc_)?fwd_kernel",
              "comm_embed_bwd": "comm_embed_(?:tc_)?bwd_kernel",
              "dial_head_fwd": "dial_head_(?:tc_)?fwd_kernel",
@@ -1229,11 +1396,12 @@ def small_grid(device, **overrides):
 
 
 def timed_steps(what, fns, ts, n_timed, fwd_per_step, bwd_per_step, variant,
-                env_per_step, embed=False):
+                env_per_step, embed=False, cacc_per_step=0):
     """A warm-up ``train_step`` and ``n_timed`` timed ones from ``ts`` (the
     first captures the update's CUDA graph, the others replay it) under
     ``on_card``, with the counts set to 0 before and asserted after
-    (``env_per_step`` env-step launches an update: T on the ATSC envs): the
+    (``env_per_step`` env-step launches an update: T on the ATSC envs;
+    ``cacc_per_step``: T on the platoon): the
     wrappers count two updates' worth (the capture's warm-up and the
     capture), and the card runs one update's worth more than the calls (the
     warm-up; ``embed``: the comm embedding's launches beside the cell's, as
@@ -1262,10 +1430,11 @@ def timed_steps(what, fns, ts, n_timed, fwd_per_step, bwd_per_step, variant,
     issued, runs = (2, n_steps + 1) if fns.graphed else (n_steps, n_steps)
     counts = {"issued": expect_counts(
         what, fwd_per_step * issued, bwd_per_step * issued, variant,
-        env_per_step * issued, embed=embed),
+        env_per_step * issued, embed=embed, cacc=cacc_per_step * issued),
         "ran": expect_counts(
             f"{what} on the card", fwd_per_step * runs, bwd_per_step * runs,
-            variant, env_per_step * runs, got=ran, embed=embed),
+            variant, env_per_step * runs, got=ran, embed=embed,
+            cacc=cacc_per_step * runs),
         "runs": runs}
     check_finite_and_moved(what, m, ts.params, p0)
     return ts, m, counts, step_times
@@ -1558,9 +1727,9 @@ def run_cacc(card: str, n_timed: int = 2):
                 or fns.spec.n_lstm != 64 or fns.spec.n_fc != 64:
             raise AssertionError(f"{what}: not the size the file states")
         # no remat in these files: T rollout + 1 bootstrap forwards; the
-        # platoon's step is PyTorch ops, no env kernel
+        # platoon's env kernel once a step
         ts, m, counts, step_times = timed_steps(
-            what, fns, ts, n_timed, T + 1, T, "general", 0)
+            what, fns, ts, n_timed, T + 1, T, "general", 0, cacc_per_step=T)
         first_launches = first_launches or counts
         log("cacc " + json.dumps({
             "config": path, "loss": float(m["loss"]),
@@ -1981,9 +2150,10 @@ def run_scripts(card: str):
         cacc_s = time.perf_counter() - t0
         # 2 updates (one graph: the wrappers count its warm-up and capture,
         # two updates' worth), then 3 sampled eval episodes of 600 steps
+        # (which step the env without auto-reset, so without its kernel)
         launches = {"scripts train_cacc_families": expect_counts(
             "scripts train_cacc_families", 2 * (T + 1) + 3 * 600, 2 * T,
-            "general", 0)}
+            "general", 0, cacc=2 * T)}
         rows = jsonl(out)
         check_rows("train_cacc_families", rows,
                    os.path.join(root, "scripts", "train_cacc_families.py"))
@@ -2185,10 +2355,10 @@ def parallel_rate(results, T: int) -> float:
 
 
 def check_rank_results(what, results, n_updates, fwd, bwd, variant, T, env,
-                       embed=False):
+                       embed=False, cacc=0):
     """Each rank's launch counts (``fwd`` + ``bwd`` an update, all of
-    ``variant``, the comm embedding's as many with ``embed``, and ``env``
-    env steps) and gradient all-reduces, as the
+    ``variant``, the comm embedding's as many with ``embed``, ``env`` ATSC
+    and ``cacc`` platoon env steps) and gradient all-reduces, as the
     wrappers count them: every update's eagerly, the graph's warm-up and
     capture (two updates' worth) under ``jit``; finite loss, global step,
     and params equal across ranks."""
@@ -2200,6 +2370,8 @@ def check_rank_results(what, results, n_updates, fwd, bwd, variant, T, env,
                 "lstm_cell_bwd": bwd * n, f"lstm_cell_bwd_{variant}": bwd * n}
         if env:
             want["network_env_step"] = env * n
+        if cacc:
+            want["cacc_env_step"] = cacc * n
         if embed:
             want.update(comm_embed_fwd=fwd * n, comm_embed_bwd=bwd * n)
         if r["launches"] != want:
@@ -2275,7 +2447,7 @@ def run_other(card: str):
                         backend="gloo", timeout=600)
         what = "parallel cacc 2 ranks"
         launches[what] = check_rank_results(what, res, 2, 9, 8, "general", 8,
-                                            0)
+                                            0, cacc=8)
         env = CACCEnv(EnvConfig(**env_kw), device="cuda")
         # eager: the wrapped step must see every update's actions, and
         # under a graph it runs only while the update is captured
@@ -2358,6 +2530,7 @@ def main(argv=None) -> int:
 
     entries = check_kernels()
     env_entry = check_env_kernel(card)
+    cacc_env_entry = check_cacc_env_kernel(card)
     embed_entries = check_comm_embed(card)
     head_entries = check_dial_head(card, head_build_s)
     if args.tune:
@@ -2466,6 +2639,25 @@ def main(argv=None) -> int:
         launches=env_paths["flagship"], device_launches=env_ran["flagship"],
         library_ms=None, launches_by_path=env_paths,
         device_launches_by_path=env_ran, **env_entry))
+    # the platoon's env kernel: the platoon files' counts and the other
+    # paths that train the platoon
+    cacc_env = "cacc_env_step"
+    cacc_paths = {"cacc ini": cacc_launches["issued"][cacc_env],
+                  "scripts train_cacc_families": scripts_launches[
+                      "scripts train_cacc_families"][cacc_env],
+                  **{k: v[cacc_env] for k, v in parallel_launches.items()
+                     if cacc_env in v}}
+    cacc_ran = {"cacc ini": cacc_launches["ran"][cacc_env]}
+    if min(cacc_paths.values()) <= 0 or len(cacc_paths) < 3 \
+            or min(cacc_ran.values()) <= 0:
+        raise AssertionError(f"{cacc_env} was not launched on its paths: "
+                             f"{cacc_paths}, on the card {cacc_ran}")
+    kernels.append(dict(
+        name=cacc_env, route="cuda", source=CACC_ENV_SOURCE,
+        replaces=CACC_ENV_REPLACES, launches=cacc_paths["cacc ini"],
+        device_launches=cacc_ran["cacc ini"], library_ms=None,
+        launches_by_path=cacc_paths, device_launches_by_path=cacc_ran,
+        **cacc_env_entry))
     # the comm embedding: the flagship's counts and every other packed
     # MA2C_NC path's (the general kernels, counted under the same keys: a
     # grid eval episode at B=1 and the small f32 updates of the replay check)

@@ -36,6 +36,8 @@ import torch
 
 from deeprl_network_tpu_torch.config import EnvConfig
 from deeprl_network_tpu_torch.envs.base import Env, EnvSpec, uniform_rows
+from deeprl_network_tpu_torch.envs.wrappers import _tree_where, _where
+from deeprl_network_tpu_torch.ops.cacc_env import c_args, cacc_env_step
 from deeprl_network_tpu_torch.utils.device import resolve_device
 
 # (alpha, beta) OVM-gain table; action = index
@@ -88,6 +90,8 @@ class CACCEnv(Env):
         )
         # rewards stay raw here; the rollout normalizes them
         self._t_gains = torch.as_tensor(OVM_GAINS, device=self.device)
+        # the env kernel's scalars (ops/cacc_env.py), folded once
+        self.kernel_args = c_args(cfg, self.scenario, OVM_GAINS)
 
     # ---- batched functions ----
 
@@ -258,3 +262,45 @@ class CACCEnv(Env):
                 "headway_err": (h_new - c.h_star).abs().mean(-1),
                 "velocity_err": (v_new - v_tgt).abs().mean(-1)}
         return s_new, self._obs(s_new), reward, done, info
+
+    def step_autoreset(self, s: CACCState, action: torch.Tensor,
+                       generator: torch.Generator = None, offset: int = 0,
+                       total: Optional[int] = None):
+        """``step`` and, for platoons that are done, a fresh reset: what
+        ``AutoResetEnv.step`` returns (state and obs of the reset where
+        done; reward, done and info of the transition). One launch of the
+        env kernel on the card (``ops/cacc_env.py``), its plain twin
+        ``step_autoreset_ref`` on the CPU. The reset's uniforms are drawn
+        every step from ``generator`` before the launch, as ``reset(batch,
+        generator, offset, total)`` draws them: h's, then v's, none where
+        its amplitude is 0."""
+        c = self.cfg
+        shape = (action.shape[0], c.n_vehicle)
+        u_h = None if c.init_noise_h == 0 else uniform_rows(
+            shape, generator, self.device, offset, total)
+        u_v = None if c.init_noise_v == 0 else uniform_rows(
+            shape, generator, self.device, offset, total)
+        action = action.long().contiguous()
+        if action.device.type == "cpu":
+            return self.step_autoreset_ref(s, action, u_h, u_v)
+        return cacc_env_step(self.kernel_args, s, action, u_h, u_v)
+
+    def step_autoreset_ref(self, s: CACCState, action: torch.Tensor,
+                           u_h: Optional[torch.Tensor],
+                           u_v: Optional[torch.Tensor]):
+        """Plain twin of the env kernel, as PyTorch ops on any device:
+        ``step``, the reset from the uniforms ``u_h``, ``u_v`` [B, n] made
+        into noise as ``reset`` makes it (zeros where None), and
+        ``AutoResetEnv``'s selects."""
+        c = self.cfg
+
+        def noise(u, amp):
+            if u is None:
+                return torch.zeros(action.shape, device=self.device)
+            return (u * 2.0 - 1.0) * amp
+
+        s2, obs2, reward, done, info = self.step(s, action)
+        rs, robs = self.reset_with_noise(noise(u_h, c.init_noise_h),
+                                         noise(u_v, c.init_noise_v))
+        return (_tree_where(done, rs, s2), _where(done, robs, obs2), reward,
+                done, info)

@@ -25,7 +25,7 @@ from typing import Dict, Iterable, Optional
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = {name: os.path.join(_HERE, "csrc", f"{name}.cu")
            for name in ("lstm_cell", "lstm_cell_tc", "network_env", "spans",
-                         "comm_embed", "dial_head")}
+                         "comm_embed", "dial_head", "cacc_env")}
 BUILD_DIR = os.path.join(_HERE, "build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]

@@ -59,7 +59,7 @@ from deeprl_network_tpu_torch.models.policies import (
     init_policy_params, tree_leaves, tree_unflatten,
 )
 from deeprl_network_tpu_torch.ops import (
-    comm_embed, dial_head, lstm_cell, network_env,
+    cacc_env, comm_embed, dial_head, lstm_cell, network_env,
 )
 from deeprl_network_tpu_torch.parallel import distributed
 from deeprl_network_tpu_torch.parallel.train import make_parallel_a2c
@@ -143,7 +143,8 @@ def run(spec: dict, device: str, out_dir: str) -> dict:
         setattr(env, step_name, recording_step)
     distributed.all_reduce_mean = counting_reduce
     for counts in (lstm_cell.LAUNCHES, network_env.LAUNCHES,
-                   comm_embed.LAUNCHES, dial_head.LAUNCHES):
+                   cacc_env.LAUNCHES, comm_embed.LAUNCHES,
+                   dial_head.LAUNCHES):
         for k in counts:
             counts[k] = 0
     metrics, update_s = [], []
@@ -162,6 +163,7 @@ def run(spec: dict, device: str, out_dir: str) -> dict:
         distributed.all_reduce_mean = reduce_mean
     launches = {k: v for k, v in {**lstm_cell.LAUNCHES,
                                   **network_env.LAUNCHES,
+                                  **cacc_env.LAUNCHES,
                                   **comm_embed.LAUNCHES,
                                   **dial_head.LAUNCHES}.items() if v}
     # under a graph: issued by the warm-up and captured, then run by every
